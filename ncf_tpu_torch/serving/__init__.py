@@ -1,0 +1,4 @@
+from ncf_tpu_torch.serving.scorer import AdvancedNCFScorer
+from ncf_tpu_torch.serving.server import ModelServer
+
+__all__ = ["AdvancedNCFScorer", "ModelServer"]
