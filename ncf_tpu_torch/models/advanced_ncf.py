@@ -1,4 +1,4 @@
-"""AdvancedNCF — port of ``ncf_tpu/models/advanced_ncf.py`` (eval mode).
+"""AdvancedNCF — port of ``ncf_tpu/models/advanced_ncf.py``.
 
 Plain functions on tensors over a nested param dict with the JAX pytree's
 keys.  The same exact algebra as the reference (see its module
@@ -6,11 +6,16 @@ docstring): single-query candidate attention, singleton attention as a
 linear map ``Wo(Wv x + bv) + bo``, and the vocabulary-level precompute
 when the vocabulary is smaller than the batch's occurrences.
 
-What this slice covers: ``apply`` with ``deterministic=True`` in both
+What is ported: ``apply`` in eval and training mode, in both
 ``candidate_attention`` modes and both vocab branches, ``score_candidates``,
-``score_items_with_hour`` and the embedding exports.  The sequence path
-(``use_sequence=True``), training dropout and the fused tower kernel come
-with later slices and raise ``NotImplementedError`` until then.
+``score_items_with_hour`` and the embedding exports.  Training dropout sits
+where the reference puts it (``advanced_ncf.py:305-308``): on the attention
+weights, in the tower and on the hierarchy vector.  Its masks come from
+one ``torch.Generator`` (``rng``) drawn in call order; the reference folds
+a role index into its key, so the two agree in distribution only.  The
+sequence path (``use_sequence=True``) and the fused tower kernel
+(``fused_tower`` ``"on"``/``"interpret"``) raise ``NotImplementedError``
+until their slices.
 """
 
 from __future__ import annotations
@@ -168,7 +173,14 @@ def _use_vocab_precompute(cfg: ModelConfig, batch_rows: int) -> bool:
 
 
 def _tower(layers, x, cfg: ModelConfig, rng, deterministic: bool, dtype):
-    """The plain MLP tower (the fused kernel comes with training)."""
+    """The MLP tower.  ``fused_tower`` ``"off"`` and ``"auto"`` run the
+    plain layers, as the reference does off a TPU; the fused kernel (B4)
+    behind ``"on"`` and ``"interpret"`` is not ported yet."""
+    mode = getattr(cfg, "fused_tower", "off")
+    if mode in ("on", "interpret"):
+        raise NotImplementedError(
+            f"fused_tower={mode!r}: the fused tower kernel (B4, "
+            "ops/pallas_tower.py) is not ported yet")
     return mlp_tower(layers, x, cfg.dropout, rng, deterministic, dtype)
 
 
@@ -187,10 +199,10 @@ def apply(
     rng=None,
     history: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Forward pass -> logits [B, S] (eval mode; see the module doc)."""
+    """Forward pass -> logits [B, S].  Training mode
+    (``deterministic=False``) draws its dropout masks from ``rng``, a
+    ``torch.Generator`` on the ids' device."""
     _no_sequence(cfg)
-    if not deterministic:
-        raise NotImplementedError("training-mode apply is not ported yet")
     B, S = item_ids.shape
     dtype = torch_dtype(cfg.compute_dtype)
     use_cat = (cfg.use_category and item_dept is not None

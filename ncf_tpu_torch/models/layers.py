@@ -74,13 +74,27 @@ def layer_norm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
 
 # --------------------------------------------------------------- dropout
 
-def dropout(rng, x: torch.Tensor, rate: float,
+def dropout_mask(rng: torch.Generator, shape, rate: float,
+                 device=None) -> torch.Tensor:
+    """Bernoulli keep mask (True with probability ``1 - rate``) drawn from
+    ``rng`` on ``device`` (default: the generator's)."""
+    if not isinstance(rng, torch.Generator):
+        raise TypeError(f"dropout needs a torch.Generator, got {type(rng)}")
+    dev = rng.device if device is None else device
+    return torch.rand(shape, generator=rng, device=dev) < (1.0 - rate)
+
+
+def dropout(rng: Optional[torch.Generator], x: torch.Tensor, rate: float,
             deterministic: bool) -> torch.Tensor:
-    """Eval-mode dropout (the identity).  Training dropout belongs to
-    the training slice of the port and raises until then."""
+    """Inverted dropout (``layers.py:70-77``): kept elements scale by
+    ``1 / (1 - rate)``, the dtype is kept.  The mask comes from ``rng``
+    (a generator on ``x``'s device), so its bits are not ``jax.random``'s:
+    parity with the reference holds in distribution."""
     if deterministic or rate <= 0.0 or rng is None:
         return x
-    raise NotImplementedError("training-mode dropout is not ported yet")
+    keep = 1.0 - rate
+    mask = dropout_mask(rng, x.shape, rate, x.device)
+    return torch.where(mask, x / keep, torch.zeros_like(x)).to(x.dtype)
 
 
 # ------------------------------------------------------ multi-head attention
@@ -113,6 +127,9 @@ def mlp_tower(
     deterministic: bool = True,
     dtype=None,
 ) -> torch.Tensor:
+    """[Linear -> ReLU -> LayerNorm -> Dropout] per layer; each layer's
+    mask is the next draw from ``rng`` (the reference folds the layer
+    index into its key)."""
     for layer in layers:
         x = dense(layer["dense"], x, dtype)
         x = torch.relu(x)

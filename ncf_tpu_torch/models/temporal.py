@@ -1,10 +1,11 @@
 """Temporal encoding: learned hour/day/month embeddings + sinusoidal
 day-of-year positional table.
 
-Port of ``ncf_tpu/models/temporal.py``.  Only the plain branch of
-``apply`` is ported: the fused lookup-sum kernel (``temporal.py:67-75``,
-reached at >= 4096 rows) belongs to the training slice, and serving calls
-``apply`` with one row.
+Port of ``ncf_tpu/models/temporal.py``.  As in the reference
+(``temporal.py:67-75``), 1-D ids of at least 4096 rows on the card take
+the fused lookup-sum kernel B3 (``ops/temporal_sum.py``), whose backward
+sends the three learned tables' gradients through the scatter kernel B2;
+everything else takes the sum of four lookups.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import torch
 
 from ncf_tpu_torch.models.layers import embedding_init
 from ncf_tpu_torch.ops.embedding import embedding_lookup
+from ncf_tpu_torch.ops.temporal_sum import fused_lookup_sum
 
 MAX_PERIOD = 365
 
@@ -58,6 +60,10 @@ def apply(
     embed_dim."""
     embed_dim = params["hour"].shape[-1]
     pe = sinusoidal_table(embed_dim, device=params["hour"].device)
+    if hour.dim() == 1 and hour.shape[0] >= 4096 and hour.is_cuda:
+        ids = torch.stack([hour, day, month, days_since % MAX_PERIOD])
+        return fused_lookup_sum(
+            ids, (params["hour"], params["day"], params["month"], pe))
     temporal = (
         embedding_lookup(params["hour"], hour)
         + embedding_lookup(params["day"], day)

@@ -25,7 +25,7 @@ _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
-SOURCES = ("topk_streaming",)
+SOURCES = ("topk_streaming", "tree_sampler", "scatter_add", "temporal_sum")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -100,14 +100,59 @@ def library(name: str) -> ctypes.CDLL:
         return _libs[name]
 
 
-def topk_streaming_lib() -> ctypes.CDLL:
-    """``ncf_topk_streaming`` with its argument types declared."""
-    lib = library("topk_streaming")
-    fn = lib.ncf_topk_streaming
+# argument codes for ``bind``: a pointer (or the stream), an int, a 64-bit int
+_CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "l": ctypes.c_longlong}
+
+
+def bind(name: str, fn_name: str, signature: str):
+    """``fn_name`` of ``csrc/<name>.cu`` with its argument types declared
+    from ``signature`` (one code of ``_CTYPES`` per argument), returning a
+    CUDA error code.  Every library exports ``ncf_cuda_error_string``."""
+    lib = library(name)
+    fn = getattr(lib, fn_name)
     if fn.argtypes is None:
-        P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [P, P, P, I, I, I, I, I, I, I, I, P, P, P, P]
-        fn.restype = ctypes.c_int
         lib.ncf_cuda_error_string.argtypes = [ctypes.c_int]
         lib.ncf_cuda_error_string.restype = ctypes.c_char_p
-    return lib
+        fn.restype = ctypes.c_int
+        fn.argtypes = [_CTYPES[c] for c in signature]
+    return fn
+
+
+def launch(name: str, fn_name: str, signature: str, *args) -> None:
+    """Call a kernel's C entry point; raise if the launch was refused."""
+    if len(args) != len(signature):
+        raise TypeError(f"{fn_name} takes {len(signature)} arguments, "
+                        f"got {len(args)}")
+    err = bind(name, fn_name, signature)(*args)
+    if err != 0:
+        msg = library(name).ncf_cuda_error_string(err).decode()
+        raise RuntimeError(f"{fn_name} launch failed: {msg} ({err})")
+
+
+def stream_of(t) -> int:
+    """The handle of the current CUDA stream on ``t``'s device."""
+    import torch
+
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+class LaunchCounter:
+    """Thread-safe count of kernel launches, one per launch of the
+    kernel on the card (the CPU path adds nothing)."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._n = 0
+
+    def add(self) -> None:
+        with self._lock:
+            self._n += 1
+
+    def reset(self) -> None:
+        with self._lock:
+            self._n = 0
+
+    @property
+    def value(self) -> int:
+        with self._lock:
+            return self._n

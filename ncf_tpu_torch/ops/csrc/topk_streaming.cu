@@ -7,9 +7,14 @@
 //   score[u, i] = q[u] . T[i] + bias[i]          (f32 accumulate)
 //   items are cut into segments of seg_width consecutive global ids; each
 //   segment surfaces its best seg_top (value desc, lower offset first);
-//   the result is the top-k of those candidates (value desc, then lower
-//   id).  Rows >= n_rows and scores <= NEG_INF (-3e38, the bias of padded
-//   rows) never surface; slots left empty come back as (NEG_INF, I-1).
+//   the result is the top-k of those candidates.  Equal values keep the
+//   order of the reference's running merge [carry; m1 of every segment;
+//   m2 of every segment]: item block (nseg segments), then rank (m1
+//   before m2), then segment.  Rows >= n_rows and scores <= NEG_INF
+//   (-3e38, the bias of padded rows) never surface; slots left empty come
+//   back as NEG_INF with the reference's id there: the best candidate of
+//   the blocks before the last (the carry's top-1 entering the last
+//   block), or 0 with one block.
 //
 // What bounds it on this card: at the serving shape (B=64 users, 4M items,
 // D=64, f32 table) the product is 3.3e10 FLOP against 1.04 GB of table:
@@ -23,8 +28,10 @@
 //     read once per user tile and the [B, I] score matrix never reaches
 //     device memory).  The chunk's scores go to shared memory; one warp
 //     per (user, segment) reduces them to the segment's top seg_top and
-//     writes each as a 64-bit key (monotone f32 bits << 32 | ~id), so a
-//     larger key is exactly a better candidate under (value desc, id asc).
+//     writes each as a 64-bit key (monotone f32 bits << 32 | ~pos), pos =
+//     ((block * seg_top + rank) * nseg + segment) * seg_width + offset, so
+//     a larger key is exactly a better candidate under (value desc, then
+//     merge order) and the id is recovered from pos.
 //     Blocks of one item chunk over consecutive user tiles run next to
 //     each other, so a chunk is read from device memory about once and
 //     then from L2.  Blocks are independent: nothing carries between them,
@@ -32,7 +39,9 @@
 //   pass 2 (merge_topk_kernel): one block per user selects the k largest
 //     candidate keys by an MSB-first radix select over the 64-bit keys
 //     (8-bit digits, stopping as soon as the boundary bin is taken whole),
-//     gathers the <= 64 winners in shared memory and ranks them.
+//     gathers the <= 64 winners in shared memory and ranks them.  When
+//     fewer than k candidates exist, the block also takes the largest key
+//     of the blocks before the last for the empty slots' id.
 // Both launches go on the caller's stream; the caller owns all buffers.
 
 #include <cuda_bf16.h>
@@ -54,10 +63,11 @@ __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 
-__device__ __forceinline__ unsigned long long make_key(float v, int id) {
+__device__ __forceinline__ unsigned long long make_key(float v,
+                                                       unsigned int pos) {
   unsigned int b = __float_as_uint(v);
   unsigned int m = (b & 0x80000000u) ? ~b : (b | 0x80000000u);
-  return ((unsigned long long)m << 32) | (unsigned int)(~(unsigned int)id);
+  return ((unsigned long long)m << 32) | (unsigned int)(~pos);
 }
 
 __device__ __forceinline__ float key_value(unsigned long long key) {
@@ -66,8 +76,16 @@ __device__ __forceinline__ float key_value(unsigned long long key) {
   return __uint_as_float(b);
 }
 
-__device__ __forceinline__ int key_id(unsigned long long key) {
-  return (int)(~(unsigned int)(key & 0xFFFFFFFFull));
+// pos -> item id: pos = ((block * seg_top + rank) * nseg + seg) *
+// seg_width + off, id = (block * nseg + seg) * seg_width + off
+__device__ __forceinline__ int key_id(unsigned long long key, int seg_width,
+                                      int seg_top, int nseg) {
+  unsigned int pos = ~(unsigned int)(key & 0xFFFFFFFFull);
+  unsigned int off = pos % (unsigned)seg_width;
+  unsigned int t = pos / (unsigned)seg_width;
+  unsigned int seg = t % (unsigned)nseg;
+  unsigned int block = t / (unsigned)nseg / (unsigned)seg_top;
+  return (int)((block * (unsigned)nseg + seg) * (unsigned)seg_width + off);
 }
 
 __device__ __forceinline__ bool better(float va, int oa, float vb, int ob) {
@@ -89,8 +107,8 @@ template <typename T, int TU, int UM, int IM>
 __global__ void __launch_bounds__(kThreads)
 seg_topk_kernel(const T* __restrict__ q, const T* __restrict__ table,
                 const float* __restrict__ bias, int B, int D, int n_rows,
-                int seg_width, int seg_top, int n_utiles, int ncand,
-                unsigned long long* __restrict__ keys) {
+                int seg_width, int seg_top, int nseg, int n_utiles,
+                int ncand, unsigned long long* __restrict__ keys) {
   constexpr int TX = kChunk / IM;
   constexpr int TY = TU / UM;
   static_assert(TX * TY == kThreads, "thread tiling must cover the block");
@@ -197,7 +215,12 @@ seg_topk_kernel(const T* __restrict__ q, const T* __restrict__ table,
       float v = lane == 0 ? v1 : v2;
       int o = lane == 0 ? o1 : o2;
       unsigned long long key = 0ull;  // empty candidate
-      if (v > kNegInf) key = make_key(v, (int)(gseg * seg_width + o));
+      if (v > kNegInf) {
+        const unsigned int blk = (unsigned int)(gseg / nseg);
+        const unsigned int sib = (unsigned int)(gseg % nseg);
+        key = make_key(v, ((blk * seg_top + lane) * nseg + sib) * seg_width
+                              + (unsigned int)o);
+      }
       keys[(long long)u * ncand + gseg * seg_top + lane] = key;
     }
   }
@@ -205,18 +228,20 @@ seg_topk_kernel(const T* __restrict__ q, const T* __restrict__ table,
 
 __global__ void __launch_bounds__(kMergeThreads)
 merge_topk_kernel(const unsigned long long* __restrict__ keys, int ncand,
-                  int k, int num_items, float* __restrict__ out_vals,
+                  int early, int k, int num_items, int seg_width,
+                  int seg_top, int nseg, float* __restrict__ out_vals,
                   int* __restrict__ out_ids) {
   __shared__ unsigned int hist[256];
   __shared__ unsigned long long sel[kMaxK];
-  __shared__ unsigned long long s_prefix, s_mask;
+  __shared__ unsigned long long s_prefix, s_mask, s_best;
   __shared__ int s_need, s_done, s_count;
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const unsigned long long* kb = keys + (long long)blockIdx.x * ncand;
   if (tid == 0) {
-    s_prefix = 0ull; s_mask = 0ull; s_need = k; s_done = 0; s_count = 0;
+    s_prefix = 0ull; s_mask = 0ull; s_best = 0ull;
+    s_need = k; s_done = 0; s_count = 0;
   }
   __syncthreads();
 
@@ -282,20 +307,32 @@ merge_topk_kernel(const unsigned long long* __restrict__ keys, int ncand,
     unsigned long long key = sel[tid];
     int rank = 0;
     for (int j = 0; j < n; ++j) rank += sel[j] > key;
-    int id = key_id(key);
+    int id = key_id(key, seg_width, seg_top, nseg);
     ov[rank] = key_value(key);
     oi[rank] = id < num_items - 1 ? id : num_items - 1;
   }
-  for (int r = n + tid; r < k; r += kMergeThreads) {
-    ov[r] = kNegInf;
-    oi[r] = num_items - 1;
+  if (n < k) {  // block-uniform: empty slots take the early blocks' best
+    unsigned long long best = 0ull;
+    for (int i = tid; i < early; i += kMergeThreads) {
+      unsigned long long key = kb[i];
+      best = key > best ? key : best;
+    }
+    atomicMax(&s_best, best);
+    __syncthreads();
+    int fill = 0;
+    if (s_best != 0ull) fill = key_id(s_best, seg_width, seg_top, nseg);
+    fill = fill < num_items - 1 ? fill : num_items - 1;
+    for (int r = n + tid; r < k; r += kMergeThreads) {
+      ov[r] = kNegInf;
+      oi[r] = fill;
+    }
   }
 }
 
 template <typename T>
 cudaError_t launch_pass1(const void* q, const void* table, const float* bias,
                          int B, int D, int n_rows, int seg_width, int seg_top,
-                         int ncand, unsigned long long* keys,
+                         int nseg, int ncand, unsigned long long* keys,
                          cudaStream_t stream) {
   const long long nchunks = ((long long)n_rows + kChunk - 1) / kChunk;
   if (B <= 8) {
@@ -303,13 +340,13 @@ cudaError_t launch_pass1(const void* q, const void* table, const float* bias,
     seg_topk_kernel<T, 8, 1, 4><<<(unsigned)(nchunks * n_utiles), kThreads,
                                   0, stream>>>(
         (const T*)q, (const T*)table, bias, B, D, n_rows, seg_width, seg_top,
-        n_utiles, ncand, keys);
+        nseg, n_utiles, ncand, keys);
   } else {
     const int n_utiles = (B + 63) / 64;
     seg_topk_kernel<T, 64, 4, 8><<<(unsigned)(nchunks * n_utiles), kThreads,
                                    0, stream>>>(
         (const T*)q, (const T*)table, bias, B, D, n_rows, seg_width, seg_top,
-        n_utiles, ncand, keys);
+        nseg, n_utiles, ncand, keys);
   }
   return cudaGetLastError();
 }
@@ -319,15 +356,19 @@ cudaError_t launch_pass1(const void* q, const void* table, const float* bias,
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16 (q and table share it).  bias may be
-// null.  keys: [B, ncand] uint64 scratch with ncand = ceil(n_rows /
-// seg_width) * seg_top.  Returns a cudaError_t (0 on success); errors
-// during the run surface at the caller's next synchronisation.
+// null.  nseg: segments per item block of the reference's merge; nblocks
+// = ceil(n_rows / (nseg * seg_width)).  keys: [B, ncand] uint64 scratch
+// with ncand = ceil(n_rows / seg_width) * seg_top.  Returns a cudaError_t
+// (0 on success); errors during the run surface at the caller's next
+// synchronisation.
 int ncf_topk_streaming(const void* q, const void* table, const float* bias,
                        int dtype, int B, int D, int n_rows, int num_items,
-                       int seg_width, int seg_top, int k, void* keys,
-                       float* out_vals, int* out_ids, void* stream) {
+                       int seg_width, int seg_top, int nseg, int nblocks,
+                       int k, void* keys, float* out_vals, int* out_ids,
+                       void* stream) {
   if (B <= 0 || D <= 0 || n_rows <= 0 || num_items <= 0 || k <= 0 ||
-      k > kMaxK || (seg_top != 1 && seg_top != 2) ||
+      k > kMaxK || (seg_top != 1 && seg_top != 2) || nseg <= 0 ||
+      nblocks <= 0 ||
       (seg_width != 32 && seg_width != 64 && seg_width != 128))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
@@ -337,12 +378,16 @@ int ncf_topk_streaming(const void* q, const void* table, const float* bias,
   cudaError_t err =
       dtype == 0
           ? launch_pass1<float>(q, table, bias, B, D, n_rows, seg_width,
-                                seg_top, ncand, kp, s)
+                                seg_top, nseg, ncand, kp, s)
           : launch_pass1<__nv_bfloat16>(q, table, bias, B, D, n_rows,
-                                        seg_width, seg_top, ncand, kp, s);
+                                        seg_width, seg_top, nseg, ncand, kp,
+                                        s);
   if (err != cudaSuccess) return (int)err;
-  merge_topk_kernel<<<B, kMergeThreads, 0, s>>>(kp, ncand, k, num_items,
-                                                out_vals, out_ids);
+  long long early = (long long)(nblocks - 1) * nseg * seg_top;
+  if (early > ncand) early = ncand;
+  merge_topk_kernel<<<B, kMergeThreads, 0, s>>>(
+      kp, ncand, (int)early, k, num_items, seg_width, seg_top, nseg,
+      out_vals, out_ids);
   return (int)cudaGetLastError();
 }
 

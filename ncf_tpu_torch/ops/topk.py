@@ -15,25 +15,51 @@ call semantics:
 
 Ties: the reference's ``lax.top_k`` breaks ties to the lower index and
 ``torch.topk`` promises nothing, so the plain paths sort stably.  The
-streaming functions order candidates by (value desc, then lower id).
+streaming functions order equal values as the reference's running merge
+``[carry; m1 of every segment; m2 of every segment]`` does: by item block
+(``block_items`` items), then segment maxima before runners-up, then by
+segment.  Slots beyond the candidates come back as ``NEG_INF`` with the
+reference's id there: the best candidate of the blocks before the last
+(the carry's top-1 entering the last block), or 0 with one block.
 
 The TPU-only operand tricks do not carry over: ``PreparedItems`` keeps
 the bias as an f32 vector added in the kernel's epilogue (the TPU folded
-it into three bf16 matmul columns), and the VMEM-sizing fields
-(``block_items``, ``user_tile``) are kept for API parity only — the CUDA
-kernel picks its own tiles, and only ``seg_width`` changes results.
+it into three bf16 matmul columns).  ``block_items`` is sized by the
+reference's own rule (``_auto_block_items``) because it decides those
+tie and empty-slot ids; the CUDA kernel picks its own tiles.
 """
 
 from __future__ import annotations
 
-import threading
 from typing import Optional, Tuple
 
 import torch
 
+from ncf_tpu_torch.ops import _kernels
+
 NEG_INF = -3.0e38
 _MAX_STREAM_K = 64     # the merge keeps at most 64 winners per user
 _MAX_SCRATCH_BYTES = 1 << 30
+_STREAM_VMEM_BUDGET = 12 * 1024 * 1024   # the reference's block sizing
+
+
+def _auto_block_items(d: int, item_bytes: int, tu: int,
+                      seg_width: int) -> int:
+    """The reference's default item block (``topk.py:340``): the largest
+    power of two (a multiple of ``seg_width``, at most 8192) whose TPU
+    working set fits its scoped-VMEM budget.  Kept because the block
+    decides the tie order and the empty-slot id."""
+    lanes = -(-(d + 3) // 128) * 128
+    ti = 8192
+    while ti > seg_width:
+        if ti * tu * 4 + ti * lanes * item_bytes * 2 <= _STREAM_VMEM_BUDGET:
+            break
+        ti //= 2
+    return max(ti, seg_width)
+
+
+def _user_tile(B: int, user_tile: int) -> int:
+    return min(user_tile, max(8, -(-B // 8) * 8))
 
 
 def _topk_lowest_index(scores: torch.Tensor, k: int):
@@ -130,7 +156,7 @@ class PreparedItems:
         self.dim = dim
         self.block_items = block_items
         self.seg_width = seg_width
-        self.user_tile = user_tile    # API parity only
+        self.user_tile = user_tile    # sizes the default block only
 
     def unfold(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """``(items [I, D], bias [I])`` exactly as prepared."""
@@ -146,11 +172,12 @@ def prepare_items(
 ) -> PreparedItems:
     """Build the streaming kernel's item operand once.  Pass the result
     as ``items`` to ``topk_scores_streaming``/``topk_scores`` with
-    ``bias=None``.  ``block_items=None`` pads to the segment width only
-    (the padding changes no result)."""
+    ``bias=None``.  ``block_items=None`` takes the reference's default
+    block for ``user_tile``."""
     I, D = items.shape
     if block_items is None:
-        block_items = seg_width
+        block_items = _auto_block_items(D, items.element_size(), user_tile,
+                                        seg_width)
     if block_items % seg_width:
         raise ValueError("block_items must be a multiple of seg_width")
     ipad = -(-I // block_items) * block_items
@@ -169,33 +196,11 @@ def prepare_items_int8(*args, **kwargs):
 
 # --------------------------------------------------- streaming top-k
 
-class _LaunchCounter:
-    """Thread-safe count of kernel launches (the coalescer calls the
-    wrapper from several threads)."""
-
-    def __init__(self):
-        self._lock = threading.Lock()
-        self._n = 0
-
-    def add(self) -> None:
-        with self._lock:
-            self._n += 1
-
-    def reset(self) -> None:
-        with self._lock:
-            self._n = 0
-
-    @property
-    def value(self) -> int:
-        with self._lock:
-            return self._n
-
-
-def _streaming_operands(queries, items, bias, block_items, seg_width,
-                        seg_top):
+def _streaming_operands(queries, items, bias, block_items, user_tile,
+                        seg_width, seg_top):
     """Validate like the reference and normalise to (q, table, bias or
-    None, num_items, seg_width): ``q`` cast to the table's dtype, as the
-    reference casts the queries to the item operand's."""
+    None, num_items, seg_width, block_items): ``q`` cast to the table's
+    dtype, as the reference casts the queries to the item operand's."""
     if seg_top not in (1, 2):
         raise ValueError("seg_top must be 1 or 2")
     if isinstance(items, PreparedItems):
@@ -207,23 +212,31 @@ def _streaming_operands(queries, items, bias, block_items, seg_width,
         if seg_width is not None and seg_width != items.seg_width:
             raise ValueError("seg_width fixed at prepare_items time")
         table, bias, num_items = items.table, items.bias, items.num_items
-        seg_width = items.seg_width
+        seg_width, block_items = items.seg_width, items.block_items
     else:
         if seg_width is None:
             seg_width = 128
-        if block_items is not None and block_items % seg_width:
-            raise ValueError("block_items must be a multiple of seg_width")
         table, num_items = items, items.shape[0]
+        if block_items is None:
+            block_items = _auto_block_items(
+                table.shape[1], table.element_size(),
+                _user_tile(queries.shape[0], user_tile), seg_width)
+        if block_items % seg_width:
+            raise ValueError("block_items must be a multiple of seg_width")
     if seg_width <= 0 or seg_width & (seg_width - 1):
         raise ValueError("seg_width must be a power of two")
-    return queries.to(table.dtype), table, bias, num_items, seg_width
+    return (queries.to(table.dtype), table, bias, num_items, seg_width,
+            block_items)
 
 
-def _segment_candidates(scores, row0, seg_width, seg_top):
+def _segment_candidates(scores, row0, seg_width, seg_top, block_items):
     """Per-segment top-``seg_top`` of a [B, C] score chunk whose columns
-    are global rows ``row0 ..``: first maximum, then the best of the
-    rest with the first hit masked (the reference's order)."""
+    are global rows ``row0 ..`` (C a multiple of ``block_items``): first
+    maximum, then the best of the rest with the first hit masked (the
+    reference's order).  Returned in the reference's merge order: item
+    block, then all segment maxima before all runners-up, then segment."""
     B, C = scores.shape
+    nseg = block_items // seg_width
     s3 = scores.reshape(B, C // seg_width, seg_width)
     off = torch.arange(seg_width, device=scores.device)[None, None, :]
     base = (row0 + torch.arange(C // seg_width, device=scores.device)
@@ -239,21 +252,24 @@ def _segment_candidates(scores, row0, seg_width, seg_top):
                            seg_width).min(dim=2).values
         vals.append(m2)
         ids.append(base + torch.clamp(off2, max=seg_width - 1))
-    # [B, nseg, seg_top] -> [B, nseg * seg_top]: candidate order is id
-    # order among equal values (a tied runner-up has the larger offset)
-    return (torch.stack(vals, dim=2).reshape(B, -1),
-            torch.stack(ids, dim=2).reshape(B, -1))
+    # [B, blocks, nseg] per rank -> [B, blocks, seg_top, nseg] -> flat
+    def order(parts):
+        t = torch.stack([x.reshape(B, -1, nseg) for x in parts], dim=2)
+        return t.reshape(B, -1)
+    return order(vals), order(ids)
 
 
 def _streaming_ref_core(q, table, bias, num_items, k, seg_width, seg_top,
-                        chunk_elems: int = 1 << 28):
+                        block_items, chunk_elems: int = 1 << 28):
     B = q.shape[0]
     n_rows = table.shape[0]
-    nseg = -(-n_rows // seg_width)
-    chunk = max(seg_width, (chunk_elems // max(B, 1)) // seg_width * seg_width)
+    nblocks = -(-n_rows // block_items)
+    padded = nblocks * block_items
+    chunk = max(block_items,
+                (chunk_elems // max(B, 1)) // block_items * block_items)
     cand_v, cand_i = [], []
-    for row0 in range(0, nseg * seg_width, chunk):
-        stop = min(row0 + chunk, nseg * seg_width)
+    for row0 in range(0, padded, chunk):
+        stop = min(row0 + chunk, padded)
         real = min(stop, n_rows)
         s = _scores(q, table[row0:real],
                     None if bias is None else bias[row0:real])
@@ -261,11 +277,12 @@ def _streaming_ref_core(q, table, bias, num_items, k, seg_width, seg_top,
             s = torch.cat([s, torch.full((B, stop - real), NEG_INF,
                                          dtype=torch.float32,
                                          device=q.device)], dim=1)
-        v, i = _segment_candidates(s, row0, seg_width, seg_top)
+        v, i = _segment_candidates(s, row0, seg_width, seg_top, block_items)
         cand_v.append(v)
         cand_i.append(i)
     cand_v = torch.cat(cand_v, dim=1)
     cand_i = torch.cat(cand_i, dim=1)
+    # a stable sort keeps the merge order among equal values
     vals, order = torch.sort(cand_v, dim=1, descending=True, stable=True)
     vals = vals[:, :k]
     ids = torch.gather(cand_i, 1, order[:, :k])
@@ -275,9 +292,20 @@ def _streaming_ref_core(q, table, bias, num_items, k, seg_width, seg_top,
                                            device=q.device)], dim=1)
         ids = torch.cat([ids, torch.zeros((B, pad), dtype=ids.dtype,
                                           device=q.device)], dim=1)
+    # empty slots: the best candidate of the blocks before the last (the
+    # carry's top-1 entering the last block), else 0
+    early = (nblocks - 1) * (block_items // seg_width) * seg_top
+    fill = torch.zeros((B,), dtype=ids.dtype, device=q.device)
+    if early > 0:
+        ev = cand_v[:, :early]
+        top = torch.argmax((ev == ev.max(dim=1, keepdim=True).values).to(
+            torch.int8), dim=1, keepdim=True)     # first of the best
+        best_v = torch.gather(ev, 1, top)[:, 0]
+        fill = torch.where(best_v > NEG_INF,
+                           torch.gather(cand_i[:, :early], 1, top)[:, 0], fill)
     empty = vals <= NEG_INF
     vals = torch.where(empty, torch.full_like(vals, NEG_INF), vals)
-    ids = torch.where(empty, torch.full_like(ids, num_items - 1), ids)
+    ids = torch.where(empty, fill[:, None].expand_as(ids), ids)
     return vals, torch.clamp(ids, max=num_items - 1).to(torch.int32)
 
 
@@ -294,15 +322,14 @@ def topk_scores_streaming_ref(
     """Plain PyTorch version of ``topk_scores_streaming`` (same
     arguments, same result).  Scores [B, I] are formed a chunk of items
     at a time, so it runs at serving sizes on the card too."""
-    q, table, b, num_items, seg_width = _streaming_operands(
-        queries, items, bias, block_items, seg_width, seg_top)
+    q, table, b, num_items, seg_width, block_items = _streaming_operands(
+        queries, items, bias, block_items, user_tile, seg_width, seg_top)
     return _streaming_ref_core(q, table, b, num_items, min(k, num_items),
-                               seg_width, seg_top)
+                               seg_width, seg_top, block_items)
 
 
-def _streaming_cuda(q, table, bias, num_items, k, seg_width, seg_top):
-    from ncf_tpu_torch.ops import _kernels
-
+def _streaming_cuda(q, table, bias, num_items, k, seg_width, seg_top,
+                    block_items):
     if table.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"streaming kernel takes f32/bf16, got {table.dtype}")
     if q.dim() != 2 or table.dim() != 2 or q.shape[1] != table.shape[1]:
@@ -323,6 +350,9 @@ def _streaming_cuda(q, table, bias, num_items, k, seg_width, seg_top):
         bias = bias.to(torch.float32).contiguous()
     B, D = q.shape
     n_rows = table.shape[0]
+    nblocks = -(-n_rows // block_items)
+    if nblocks * block_items * seg_top >= 1 << 32:
+        raise ValueError("too many items for the kernel's 32-bit tie keys")
     if B == 0:
         return (torch.empty((0, k), dtype=torch.float32, device=dev),
                 torch.empty((0, k), dtype=torch.int32, device=dev))
@@ -333,22 +363,17 @@ def _streaming_cuda(q, table, bias, num_items, k, seg_width, seg_top):
     keys = torch.empty((rows, ncand), dtype=torch.int64, device=dev)
     vals = torch.empty((B, k), dtype=torch.float32, device=dev)
     ids = torch.empty((B, k), dtype=torch.int32, device=dev)
-    lib = _kernels.topk_streaming_lib()
     dtype_code = 0 if table.dtype == torch.float32 else 1
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
         for start in range(0, B, rows):
             n = min(rows, B - start)
-            err = lib.ncf_topk_streaming(
-                q[start].data_ptr(), table.data_ptr(),
+            _kernels.launch(
+                *C_ENTRY, q[start].data_ptr(), table.data_ptr(),
                 bias.data_ptr() if bias is not None else None,
-                dtype_code, n, D, n_rows, num_items, seg_width, seg_top, k,
-                keys.data_ptr(), vals[start].data_ptr(),
-                ids[start].data_ptr(), stream)
-            if err != 0:
-                msg = lib.ncf_cuda_error_string(err).decode()
-                raise RuntimeError(
-                    f"topk_streaming launch failed: {msg} ({err})")
+                dtype_code, n, D, n_rows, num_items, seg_width, seg_top,
+                block_items // seg_width, nblocks, k, keys.data_ptr(),
+                vals[start].data_ptr(), ids[start].data_ptr(),
+                _kernels.stream_of(table))
             topk_scores_streaming.launches.add()
     return vals, ids
 
@@ -368,24 +393,27 @@ def topk_scores_streaming(
     segment of consecutive item ids surfaces its best ``seg_top``, and
     the result is the top-k of those, with exact f32 scores and ids.
     An item is missed only when more than ``seg_top`` of the true top-k
-    share its segment.  Slots beyond the candidates come back as
-    ``(NEG_INF, I - 1)``.
+    share its segment.  Equal values and slots beyond the candidates
+    follow the reference's merge (see the module docstring).
 
     CUDA tensors launch the kernel (``csrc/topk_streaming.cu``) or
     raise; CPU tensors run ``topk_scores_streaming_ref``.  Each kernel
     launch adds one to ``topk_scores_streaming.launches``."""
-    q, table, b, num_items, seg_width = _streaming_operands(
-        queries, items, bias, block_items, seg_width, seg_top)
+    q, table, b, num_items, seg_width, block_items = _streaming_operands(
+        queries, items, bias, block_items, user_tile, seg_width, seg_top)
     k = min(k, num_items)
     if table.device.type == "cpu":
         return _streaming_ref_core(q, table, b, num_items, k, seg_width,
-                                   seg_top)
+                                   seg_top, block_items)
     if table.device.type != "cuda":
         raise RuntimeError(f"no streaming kernel for {table.device}")
-    return _streaming_cuda(q, table, b, num_items, k, seg_width, seg_top)
+    return _streaming_cuda(q, table, b, num_items, k, seg_width, seg_top,
+                           block_items)
 
 
-topk_scores_streaming.launches = _LaunchCounter()
+topk_scores_streaming.launches = _kernels.LaunchCounter()
+# (library, C function, argument codes of ``_kernels.bind``)
+C_ENTRY = ("topk_streaming", "ncf_topk_streaming", "ppp" + "i" * 10 + "pppp")
 
 
 # --------------------------------------------------------------- dispatch

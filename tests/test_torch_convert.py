@@ -107,3 +107,38 @@ def test_find_latest_and_best(tmp_path):
     assert tckpt.find_best(str(tmp_path)) is None
     os.symlink("ckpt_00000003", tmp_path / tckpt.BEST_LINK)
     assert tckpt.find_best(str(tmp_path)).endswith("ckpt_00000003")
+
+
+def test_adam_state_round_trips_through_the_port():
+    import jax.numpy as jnp
+
+    from ncf_tpu.train import optim as joptim
+    from ncf_tpu.utils.config import TrainConfig as JTrainConfig
+    from ncf_tpu_torch.convert import (adam_state_from_numpy,
+                                       adam_state_to_numpy)
+
+    cfg = JModelConfig(num_users=30, num_items=20, mf_dim=8, mlp_dim=8,
+                       temporal_dim=4, mlp_hidden_dims=[16, 8])
+    params = jmodel.init(jax.random.PRNGKey(4), cfg)
+    tx = joptim.make_optimizer(JTrainConfig(), steps_per_epoch=10)
+    state = tx.init(params)
+    grads = jax.tree.map(lambda p: p * 0.5 + 0.1, params)
+    for _ in range(2):                     # nonzero moments, count 2
+        _, state = tx.update(grads, state, params)
+    np_state = jax.tree.map(np.asarray, state)
+    port = adam_state_from_numpy(np_state, "cpu")
+    assert int(port["count"]) == 2 and port["count"].dtype == torch.int32
+    assert isinstance(port["mu"]["mlp"], list)
+    back = adam_state_to_numpy(port, state)
+    assert jax.tree_util.tree_structure(back) == \
+        jax.tree_util.tree_structure(np_state)
+    for a, b in zip(jax.tree_util.tree_leaves(back),
+                    jax.tree_util.tree_leaves(np_state)):
+        assert np.asarray(a).dtype == np.asarray(b).dtype
+        np.testing.assert_array_equal(a, b)
+    # the state carried back drives optax's next update exactly
+    upd_a, _ = tx.update(grads, jax.tree.map(jnp.asarray, back), params)
+    upd_b, _ = tx.update(grads, state, params)
+    for a, b in zip(jax.tree_util.tree_leaves(upd_a),
+                    jax.tree_util.tree_leaves(upd_b)):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))

@@ -25,7 +25,15 @@ def test_every_module_is_listed():
     mods = _modules()
     for name in ("ncf_tpu_torch.ops.topk", "ncf_tpu_torch.ops._kernels",
                  "ncf_tpu_torch.serving.server", "ncf_tpu_torch.convert",
-                 "ncf_tpu_torch.train.checkpoint"):
+                 "ncf_tpu_torch.train.checkpoint",
+                 "ncf_tpu_torch.ops.sampler", "ncf_tpu_torch.ops.scatter",
+                 "ncf_tpu_torch.ops.temporal_sum",
+                 "ncf_tpu_torch.ops.embedding", "ncf_tpu_torch.native",
+                 "ncf_tpu_torch.data.interactions",
+                 "ncf_tpu_torch.data.synthetic",
+                 "ncf_tpu_torch.data.pipeline", "ncf_tpu_torch.data.sampler",
+                 "ncf_tpu_torch.evals.metrics", "ncf_tpu_torch.train.optim",
+                 "ncf_tpu_torch.train.step"):
         assert name in mods
 
 
@@ -66,6 +74,13 @@ def test_entry_points_default_to_the_card(monkeypatch):
         ModelServer.from_checkpoint(Config(), "no-such-checkpoint")
     with pytest.raises(RuntimeError, match="CUDA"):
         params_from_numpy({"w": [1.0]})
+    from ncf_tpu_torch.models import get_model
+    from ncf_tpu_torch.train import make_optimizer, make_train_step
+
+    cfg = Config()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_train_step(get_model("advanced_ncf"), cfg,
+                        make_optimizer(cfg.train))
     assert resolve_device("cpu").type == "cpu"
 
 
@@ -73,5 +88,11 @@ def test_the_kernel_loader_builds_nothing_on_import():
     from ncf_tpu_torch.ops import _kernels
 
     assert _kernels._libs == {}
+    assert set(_kernels.SOURCES) == {"topk_streaming", "tree_sampler",
+                                     "scatter_add", "temporal_sum"}
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    for name in _kernels.SOURCES:
+        assert os.path.exists(os.path.join(
+            root, "ncf_tpu_torch", "ops", "csrc", name + ".cu"))
     assert _kernels.NVCC_FLAGS[:2] == ["-gencode",
                                        "arch=compute_90a,code=sm_90a"]

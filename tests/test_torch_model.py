@@ -113,10 +113,22 @@ def test_dense_layer_norm_and_tower(dtype):
 
 
 def test_training_dropout_is_not_ported_yet():
+    # training dropout is ported now: without a generator, or in eval
+    # mode, it is the identity; with one it is inverted dropout whose
+    # masks come from that generator (a key of another kind is refused)
     x = torch.ones(3)
     assert tlayers.dropout(None, x, 0.5, False) is x
-    with pytest.raises(NotImplementedError):
+    assert tlayers.dropout(torch.Generator(), x, 0.5, True) is x
+    with pytest.raises(TypeError):
         tlayers.dropout(object(), x, 0.5, False)
+    y = torch.ones((400, 250), dtype=torch.bfloat16)
+    out = tlayers.dropout(torch.Generator().manual_seed(0), y, 0.2, False)
+    assert out.dtype == torch.bfloat16
+    kept = out != 0
+    assert abs(float(kept.float().mean()) - 0.8) < 0.01
+    assert torch.equal(out[kept], torch.full_like(out[kept], 1.25))
+    again = tlayers.dropout(torch.Generator().manual_seed(0), y, 0.2, False)
+    assert torch.equal(out, again)
 
 
 def test_init_matches_the_pytree(demo):

@@ -4,8 +4,9 @@ interpret mode, plus the dense/blocked/rescore paths and the dispatch.
 
 Tolerances: ids must be equal; values within rtol/atol 1e-5, because the
 JAX kernel adds the bias as three bf16 matmul columns, in another order
-than the port's f32 epilogue.  Inputs are continuous random draws, so
-scores carry no ties.
+than the port's f32 epilogue.  Most inputs are continuous random draws;
+the tie tests use small integers, whose scores both packages compute
+exactly, so tied ids must come out in the reference's order.
 """
 
 import itertools
@@ -55,10 +56,10 @@ def _assert_matches_jax(tv, ti, jv, ji, num_items):
     valid = jv > NEG_INF
     np.testing.assert_array_equal(ti[valid], ji[valid])
     np.testing.assert_allclose(tv[valid], jv[valid], rtol=1e-5, atol=1e-5)
-    # slots beyond the candidates: NEG_INF in both; the port's id is I-1
-    # (the reference leaves a stale id there)
+    # slots beyond the candidates: NEG_INF and the reference's id in both
     assert (tv[~valid] == np.float32(NEG_INF)).all()
-    assert (ti[~valid] == num_items - 1).all()
+    np.testing.assert_array_equal(ti[~valid], ji[~valid])
+    assert (ti < num_items).all()
 
 
 @pytest.mark.parametrize("B,I,D,seg,bias", CASES)
@@ -103,6 +104,54 @@ def test_streaming_misses_same_segment_items_like_pallas():
                                          seg_top=2)
     _assert_matches_jax(tv, ti, jv, ji, 1000)
     assert len({300, 301, 302} & set(ti[0].tolist())) == 2
+
+
+@pytest.mark.parametrize("block_items", (256, 512, 1024))
+@pytest.mark.parametrize("seg", ((128, 1), (64, 1), (128, 2)))
+def test_streaming_empty_slots_take_the_reference_id(block_items, seg):
+    # fewer candidates than k: the reference fills the rest with the
+    # carry's top-1 entering the last item block (0 with one block)
+    q, t, b = _data(5, 1000, 16, True, seed=block_items + seg[0])
+    b[rng_items(1000, 400, seed=seg[1])] = NEG_INF     # empty some segments
+    k = 40
+    jv, ji = jtopk.topk_scores_streaming(
+        _j(q), _j(t), k=k, bias=_j(b), block_items=block_items,
+        seg_width=seg[0], seg_top=seg[1], interpret=True)
+    jv, ji = np.asarray(jv), np.asarray(ji)
+    assert (jv <= NEG_INF).any()
+    tv, ti = ttopk.topk_scores_streaming(
+        _t(q), _t(t), k=k, bias=_t(b), block_items=block_items,
+        seg_width=seg[0], seg_top=seg[1])
+    _assert_matches_jax(tv, ti, jv, ji, 1000)
+    prep = ttopk.prepare_items(_t(t), _t(b), block_items=block_items,
+                               seg_width=seg[0])
+    pv, pi = ttopk.topk_scores_streaming(_t(q), prep, k=k, seg_top=seg[1])
+    _assert_matches_jax(pv, pi, jv, ji, 1000)
+
+
+def rng_items(n, m, seed):
+    return np.random.default_rng(seed).choice(n, m, replace=False)
+
+
+@pytest.mark.parametrize("seg", ((128, 2), (64, 1), (32, 2)))
+@pytest.mark.parametrize("block_items", (256, 512))
+def test_streaming_ties_follow_the_reference_merge_order(seg, block_items):
+    # small integer operands: exact scores with many ties across blocks,
+    # ranks and segments
+    rng = np.random.default_rng(seg[0] + block_items)
+    q = rng.integers(-1, 2, (6, 8)).astype(np.float32)
+    t = rng.integers(-1, 2, (1500, 8)).astype(np.float32)
+    b = rng.integers(0, 2, 1500).astype(np.float32)
+    jv, ji = jtopk.topk_scores_streaming(
+        _j(q), _j(t), k=30, bias=_j(b), block_items=block_items,
+        seg_width=seg[0], seg_top=seg[1], interpret=True)
+    tv, ti = ttopk.topk_scores_streaming(
+        _t(q), _t(t), k=30, bias=_t(b), block_items=block_items,
+        seg_width=seg[0], seg_top=seg[1])
+    jv, ji = np.asarray(jv), np.asarray(ji)
+    assert len(np.unique(jv[0])) < 10                  # the data does tie
+    np.testing.assert_array_equal(tv.numpy(), jv)
+    np.testing.assert_array_equal(ti.numpy(), ji)
 
 
 def test_streaming_on_cpu_leaves_the_launch_counter_alone():
