@@ -12,6 +12,9 @@ Phases (each asserts; any failure exits non-zero and prints no result):
    inputs: the streaming top-k (B5) at the serving shapes, with tied
    scores and empty slots; the sampler (B1), scatter-add (B2) and
    temporal sum (B3) at the training step's shapes and at edge shapes;
+   the fused tower's forward (B4f) and backward (B4b) at the three tower
+   shapes of the training steps, with dropout 0 and 0.2, and at edge
+   shapes (identical dropout zeros);
 4. serving at full width: ``configs/advanced_ncf_bigvocab.yaml`` (12M users
    x 4M items, random weights from a seeded generator) through
    ``ModelServer`` with ``retrieval="exact"`` and ``"fast"``: direct,
@@ -20,18 +23,31 @@ Phases (each asserts; any failure exits non-zero and prints no result):
 5. kernel, plain-version and library-call times (CUDA events) at the
    serving shapes, beside the least time the card could take;
 6. the demo checkpoint served on the card against the port's CPU answers;
-7. training at full width: ``configs/advanced_ncf_ml1m.yaml`` (6040 users
-   x 3706 items, batch 16384, bf16 compute, dropout 0.2) on batches of
-   ``BatchIterator`` over ``generate_interactions`` at that size, ~30
-   ``make_train_step`` steps for each sampler x candidate mode; every step
-   must launch B1 once, B2 seven times and B3 once, and the loss must fall;
+7. training at full width, config A: ``configs/advanced_ncf_ml1m.yaml``
+   as shipped (6040 users x 3706 items, batch 16384, bf16 compute, dropout
+   0.2, ``fused_tower: auto``) on batches of ``BatchIterator`` over
+   ``generate_interactions`` at that size, 30 ``make_train_step`` steps
+   for each sampler x candidate mode; every step must launch B1 once, B2
+   seven times, B3, B4f and B4b once each, and the loss must fall;
+   config B: ``configs/advanced_ncf_quality.yaml`` (sequence, independent)
+   and ``configs/advanced_ncf_sequence.yaml`` (sequence, joint), 30 steps
+   each with the train split's ``recent_history(50)`` (B2 eight times a
+   step), and a few steps with causal per-example histories in the batch;
 8. three full-width steps in f32 with dropout 0 on the card and through
-   the port on the CPU, from the same params and negatives;
-9. step time and examples/s (the median of five windows), a profiler
+   the port on the CPU, from the same params and negatives, with the
+   plain tower and with ``fused_tower: on`` (the kernels on the card,
+   their plain version on the CPU);
+9. serving config B: ``ModelServer`` over the quality config with
+   ``user_history`` (``SequenceRescoreScorer``): single, excluding,
+   temporal and batched requests and pair scores, held against the same
+   server with ``fused_tower: off``; each request launches B4f;
+10. step time and examples/s (the median of five windows) and a profiler
    window over 20 steps (device time and operations per step, the host
-   operations that take the most time), and each training kernel's time
-   (CUDA events, and device time from the profiler) beside its plain
-   version, its library call and its bound.
+   operations that take the most time) for config A under ``auto`` and
+   ``off`` in both candidate modes and for config B; each training
+   kernel's time (CUDA events, and device time from the profiler) beside
+   its plain version, its library call (or, for B4, the plain layers of
+   ``off``) and its bound.
 
 The last two lines of standard output are the ``kernels`` JSON object and
 ``{"ok": true, "device": {...}}``.
@@ -57,6 +73,10 @@ PEAK_FLOP_S = {"float32": 67e12,        # CUDA-core f32
 KERNELS = {
     "topk_scores_streaming": ("ncf_tpu_torch/ops/csrc/topk_streaming.cu",
                               "ncf_tpu/ops/topk.py:447"),
+    "fused_tower_fwd": ("ncf_tpu_torch/ops/csrc/fused_tower.cu",
+                        "ncf_tpu/ops/pallas_tower.py:306"),
+    "fused_tower_bwd": ("ncf_tpu_torch/ops/csrc/fused_tower.cu",
+                        "ncf_tpu/ops/pallas_tower.py:325"),
     "tree_sample_negatives": ("ncf_tpu_torch/ops/csrc/tree_sampler.cu",
                               "ncf_tpu/ops/pallas_sampler.py:164"),
     "onehot_scatter_add": ("ncf_tpu_torch/ops/csrc/scatter_add.cu",
@@ -65,7 +85,14 @@ KERNELS = {
                          "ncf_tpu/ops/pallas_temporal.py:94"),
 }
 ML1M = os.path.join(ROOT, "configs", "advanced_ncf_ml1m.yaml")
-TRAIN_STEPS = 30          # per sampler x candidate mode
+QUALITY = os.path.join(ROOT, "configs", "advanced_ncf_quality.yaml")
+SEQUENCE = os.path.join(ROOT, "configs", "advanced_ncf_sequence.yaml")
+TRAIN_STEPS = 30          # per sampler x candidate mode, and per config B
+CAUSAL_STEPS = 5
+# the tower's input at the training steps: (rows, width) for config A
+# joint, A independent and B independent
+TOWER_SHAPES = ((16384, 96), (81920, 96), (81920, 160))
+TOWER_HIDDEN = [256, 128, 64]
 
 
 class SmokeFailure(Exception):
@@ -597,60 +624,224 @@ def phase_training_kernels_vs_plain(torch):
     return errs
 
 
+def _tower_layers(torch, d0, hidden, gen):
+    """Tower params as ``mlp_tower_init`` draws them, with the LayerNorm
+    scale and bias moved off (1, 0) so their gradients are general."""
+    from ncf_tpu_torch.models.layers import mlp_tower_init
+
+    layers = mlp_tower_init(gen, d0, hidden)
+    for layer in layers:
+        n = layer["norm"]["scale"].shape[0]
+        layer["norm"]["scale"] += 0.1 * torch.randn(n, generator=gen,
+                                                    device=gen.device)
+        layer["norm"]["bias"] += 0.1 * torch.randn(n, generator=gen,
+                                                   device=gen.device)
+    return layers
+
+
+def _tower_leaves(layers):
+    return [l[a][b] for l in layers for a, b in (
+        ("dense", "w"), ("dense", "b"), ("norm", "scale"), ("norm", "bias"))]
+
+
+def _tower_compare(torch, tower, layers, x, rate, what):
+    """B4f and B4b against ``fused_tower_ref`` on the same inputs and the
+    same generator state.  Tolerances: identical dropout zeros; outputs
+    within 1e-4 (relative, plus 1e-4) for at least 95% of the elements
+    and within 5e-2 of the largest magnitude for all (f32 sums in another
+    order; where two straddle a bf16 rounding boundary between layers,
+    the rest of that row moves by up to ~1e-2, in a few percent of the
+    rows at width 512).  The backwards are held on the rows whose outputs
+    agree to 1e-5 (at least 90%; dy is zero elsewhere):
+    each parameter gradient within 1e-4 of its largest magnitude, dx
+    within one bf16 ulp plus 1e-4 of its largest magnitude.  Returns
+    (max |out diff|, max |grad diff| over dx and the leaves)."""
+    runs = []
+    for fn in (tower.fused_tower, tower.fused_tower_ref):
+        tracked = [{k: {n: t.detach().clone().requires_grad_(True)
+                        for n, t in l[k].items()} for k in ("dense", "norm")}
+                   for l in layers]
+        xt = x.detach().clone().requires_grad_(True)
+        gen = torch.Generator(device=x.device).manual_seed(17)
+        runs.append((fn(tracked, xt, rate, gen, rate == 0.0), xt,
+                     _tower_leaves(tracked)))
+    (ko, kx, kl), (ro, rx, rl) = runs
+    torch.cuda.synchronize()
+    check(torch.equal(ko == 0, ro == 0), f"B4f {what}: dropout zeros differ")
+    err = (ko - ro).abs().detach()
+    scale = 1 + ro.abs().detach()
+    near = float((err <= 1e-4 * scale).float().mean())
+    check(near >= 0.95, f"B4f {what}: {1 - near!r} of the outputs beyond "
+          "1e-4")
+    check(float(err.max()) <= 5e-2 * float(ro.detach().abs().max()),
+          f"B4f {what}: max |diff| {float(err.max())!r}")
+    same = (err <= 1e-5 * scale).reshape(-1, err.shape[-1]).all(-1)
+    check(float(same.float().mean()) >= 0.9,
+          f"B4f {what}: only {float(same.float().mean())!r} of rows agree")
+    dy = torch.randn(ko.shape, device=x.device, generator=torch.Generator(
+        device=x.device).manual_seed(5))
+    dy = dy * same.reshape(ko.shape[:-1] + (1,))
+    ko.backward(dy)
+    ro.backward(dy)
+    torch.cuda.synchronize()
+    gk, gr = kx.grad.float(), rx.grad.float()
+    dx_err = (gk - gr).abs()
+    check(bool(dx_err.le(2.0 ** -7 * gr.abs()
+                         + 1e-4 * float(gr.abs().max())).all()),
+          f"B4b {what}: dx differs beyond one bf16 ulp")
+    worst = float(dx_err.max())
+    for i, (k, r) in enumerate(zip(kl, rl)):
+        e = float((k.grad - r.grad).abs().max())
+        check(e <= 1e-4 * float(r.grad.abs().max()) + 1e-6,
+              f"B4b {what}: gradient of leaf {i} differs by {e!r}")
+        worst = max(worst, e)
+    return float(err.max()), worst
+
+
+def phase_tower_kernels_vs_plain(torch):
+    """B4f and B4b at the training steps' tower shapes and at edge shapes.
+    Returns {kernel: max |kernel - plain|}."""
+    from ncf_tpu_torch.ops import tower
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(31)
+    errs = {"fused_tower_fwd": 0.0, "fused_tower_bwd": 0.0}
+    cases = [((rows, d0), TOWER_HIDDEN) for rows, d0 in TOWER_SHAPES]
+    cases += [((1, 96), TOWER_HIDDEN), ((1025, 96), TOWER_HIDDEN),
+              ((4096, 5, 96), TOWER_HIDDEN), ((3000, 96), [64]),
+              ((2048, 512), [512, 512, 64])]
+    n = 0
+    f0 = tower.fused_tower.fwd_launches.value
+    b0 = tower.fused_tower.bwd_launches.value
+    for shape, hidden in cases:
+        layers = _tower_layers(torch, shape[-1], hidden, gen)
+        x = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+        for rate in (0.0, 0.2):
+            ef, eb = _tower_compare(torch, tower, layers, x, rate,
+                                    f"{list(shape)} -> {hidden} rate {rate}")
+            errs["fused_tower_fwd"] = max(errs["fused_tower_fwd"], ef)
+            errs["fused_tower_bwd"] = max(errs["fused_tower_bwd"], eb)
+            n += 1
+        del layers, x
+    check(tower.fused_tower.fwd_launches.value - f0 == n
+          and tower.fused_tower.bwd_launches.value - b0 == n,
+          "B4: one launch per direction and case expected")
+    torch.cuda.empty_cache()
+    log(f"kernel_vs_plain: fused tower {n} cases ok, max_abs_err "
+        f"{json.dumps(errs)}")
+    return errs
+
+
 # -------------------------------------------------------------- training
 
-def _training_setup(torch, cfg_overrides=None):
-    """The ML-1M config at full width, its synthetic log and the step's
-    device constants."""
+_DATA = {}
+
+
+def _data(cfg):
+    """The synthetic log at the config's size and its train split, made
+    once per size."""
+    from ncf_tpu_torch.data import generate_interactions
+
+    d = cfg.data
+    key = (d.synthetic_users, d.synthetic_items, d.synthetic_days,
+           d.synthetic_avg_txns_per_user, d.synthetic_seed, d.validation_days)
+    if key not in _DATA:
+        inter = generate_interactions(
+            num_users=d.synthetic_users, num_items=d.synthetic_items,
+            num_days=d.synthetic_days,
+            avg_txns_per_user=d.synthetic_avg_txns_per_user,
+            seed=d.synthetic_seed)
+        _DATA[key] = (inter, inter.time_split(d.validation_days)[0])
+    return _DATA[key]
+
+
+def _training_setup(torch, path=ML1M):
+    """A training config at full width as shipped (stratified negatives,
+    as ``bench.py`` trains), its synthetic log's batches and the step's
+    device constants: (cfg, batches, consts, interactions, train split)."""
     import numpy as np
 
-    from ncf_tpu_torch.data import (BatchIterator, generate_interactions,
-                                    make_sampling_cdf)
+    from ncf_tpu_torch.data import BatchIterator, make_sampling_cdf
     from ncf_tpu_torch.utils.config import Config
 
-    cfg = Config.from_yaml(ML1M)
-    d = cfg.data
-    inter = generate_interactions(
-        num_users=d.synthetic_users, num_items=d.synthetic_items,
-        num_days=d.synthetic_days,
-        avg_txns_per_user=d.synthetic_avg_txns_per_user,
-        seed=d.synthetic_seed)
+    cfg = Config.from_yaml(path)
+    inter, train_inter = _data(cfg)
     cfg.model.num_users, cfg.model.num_items = inter.num_users, inter.num_items
     cfg.model.num_departments = inter.num_departments
     cfg.model.num_categories = inter.num_categories
-    cfg.model.fused_tower = "off"
     cfg.train.negative_sampling = "stratified"
-    train_inter, _ = inter.time_split(d.validation_days)
     it = BatchIterator(train_inter, cfg.train.batch_size, seed=cfg.train.seed)
     neg_cdf = make_sampling_cdf(train_inter.inverse_popularity_weights(),
                                 device="cuda")
     consts = (neg_cdf, np.asarray(inter.item_dept), np.asarray(inter.item_cat))
-    return cfg, it, consts, len(inter)
+    return cfg, it, consts, inter, train_inter
 
 
 def _launch_counters():
-    from ncf_tpu_torch.ops import sampler, scatter, temporal_sum
+    from ncf_tpu_torch.ops import sampler, scatter, temporal_sum, tower
 
     return {"tree_sample_negatives": sampler.tree_sample_negatives.launches,
             "onehot_scatter_add": scatter.onehot_scatter_add.launches,
-            "fused_lookup_sum": temporal_sum.fused_lookup_sum.launches}
+            "fused_lookup_sum": temporal_sum.fused_lookup_sum.launches,
+            "fused_tower_fwd": tower.fused_tower.fwd_launches,
+            "fused_tower_bwd": tower.fused_tower.bwd_launches}
 
 
 PER_STEP = {"tree_sample_negatives": 1, "onehot_scatter_add": 7,
-            "fused_lookup_sum": 1}
+            "fused_lookup_sum": 1, "fused_tower_fwd": 1, "fused_tower_bwd": 1}
+# the sequence path adds one table gradient: the projected K/V table
+PER_STEP_SEQ = dict(PER_STEP, onehot_scatter_add=8)
 
 
-def phase_training(torch, advanced_ncf):
-    """The main training path: every sampler x candidate mode, ~30 steps
-    each.  Returns (launches per kernel over the phase, summary)."""
-    from ncf_tpu_torch.models import get_model, layers
-    from ncf_tpu_torch.ops import embedding
+def _train_steps(torch, model, cfg, consts, batches, steps, per_step, what,
+                 user_history=None):
+    """``steps`` full-width steps from seeded params, each checked for its
+    launches; returns the per-step losses on the host."""
+    from ncf_tpu_torch.models import advanced_ncf
     from ncf_tpu_torch.train import make_optimizer, make_train_step
 
+    counters = _launch_counters()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = advanced_ncf.init(gen, cfg.model)
+    opt = make_optimizer(cfg.train, steps_per_epoch=len(batches))
+    state = opt.init(params)
+    step = make_train_step(model, cfg, opt, *consts,
+                           user_history=user_history)
+    losses = []
+    for i in range(steps):
+        before = {k: c.value for k, c in counters.items()}
+        params, state, gen, m = step(params, state, gen,
+                                     batches[i % len(batches)])
+        for k, c in counters.items():
+            check(c.value - before[k] == per_step[k],
+                  f"training[{what}] step {i}: {k} launched "
+                  f"{c.value - before[k]} times, want {per_step[k]}")
+        losses.append(m["loss"])
+    losses = torch.stack(losses).float().cpu()
+    check(bool(torch.isfinite(losses).all()),
+          f"training[{what}]: non-finite loss")
+    return losses, float(m["accuracy"])
+
+
+def _loss_fell(losses, what):
+    first, last = float(losses[:5].mean()), float(losses[-5:].mean())
+    check(last < first, f"training[{what}]: loss did not fall ({first!r} "
+          f"-> {last!r})")
+    return first, last
+
+
+def phase_training(torch):
+    """Config A as shipped: every sampler x candidate mode, 30 steps each,
+    B4f and B4b once a step under ``fused_tower: auto``.  Returns
+    (launches per kernel over the phase, summary)."""
+    from ncf_tpu_torch.models import get_model, layers
+    from ncf_tpu_torch.ops import embedding, tower
+
     t0 = time.perf_counter()
-    cfg, it, consts, n_inter = _training_setup(torch)
+    cfg, it, consts, inter, _ = _training_setup(torch)
+    check(cfg.model.fused_tower == "auto", "config A: fused_tower is not auto")
     log(f"training: {cfg.model.num_users}x{cfg.model.num_items}, "
-        f"{n_inter} interactions, {len(it)} batches of "
+        f"{len(inter)} interactions, {len(it)} batches of "
         f"{cfg.train.batch_size}, set up in {time.perf_counter() - t0:.1f} s")
     embedding.set_scatter_impl("fast")
     model = get_model("advanced_ncf")
@@ -663,49 +854,90 @@ def phase_training(torch, advanced_ncf):
         for mode in ("joint", "independent"):
             cfg.train.negative_sampling = sampling
             cfg.model.candidate_mode = mode
-            gen = torch.Generator(device="cuda").manual_seed(0)
-            params = advanced_ncf.init(gen, cfg.model)
-            opt = make_optimizer(cfg.train, steps_per_epoch=len(batches))
-            state = opt.init(params)
-            step = make_train_step(model, cfg, opt, *consts)
-            losses = []
-            for i in range(TRAIN_STEPS):
-                before = {k: c.value for k, c in counters.items()}
-                params, state, gen, m = step(params, state, gen,
-                                             batches[i % len(batches)])
-                for k, c in counters.items():
-                    check(c.value - before[k] == PER_STEP[k],
-                          f"training[{sampling}/{mode}] step {i}: {k} "
-                          f"launched {c.value - before[k]} times, "
-                          f"want {PER_STEP[k]}")
-                losses.append(m["loss"])
-            losses = torch.stack(losses).float().cpu()
-            check(bool(torch.isfinite(losses).all()),
-                  f"training[{sampling}/{mode}]: non-finite loss")
-            first, last = float(losses[:5].mean()), float(losses[-5:].mean())
-            check(last < first, f"training[{sampling}/{mode}]: loss did not "
-                  f"fall ({first!r} -> {last!r})")
-            summary[f"{sampling}/{mode}"] = {"first5": first, "last5": last,
-                                             "acc": float(m["accuracy"])}
-            log(f"training[{sampling}/{mode}]: {TRAIN_STEPS} steps, loss "
-                f"{first!r} -> {last!r}, accuracy {float(m['accuracy'])!r}")
-            del params, state
+            what = f"{sampling}/{mode}"
+            losses, acc = _train_steps(torch, model, cfg, consts, batches,
+                                       TRAIN_STEPS, PER_STEP, what)
+            first, last = _loss_fell(losses, what)
+            summary[what] = {"first5": first, "last5": last, "acc": acc}
+            log(f"training[{what}]: {TRAIN_STEPS} steps, loss {first!r} -> "
+                f"{last!r}, accuracy {acc!r}")
     launches = {k: c.value for k, c in counters.items()}
     gen = torch.Generator(device="cuda").manual_seed(1)
     keep = layers.dropout_mask(gen, (16384, 256), cfg.model.dropout)
     zeroed = 1.0 - float(keep.float().mean())
-    check(abs(zeroed - cfg.model.dropout) <= 0.01,
-          f"dropout zeroes {zeroed!r}, want {cfg.model.dropout} +- 0.01")
+    seed = torch.randint(0, 2 ** 31 - 1, (1,), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    bits = tower.dropout_bits(seed, 0, 16384, 256)
+    tower_zeroed = float((bits >= tower.keep_threshold(cfg.model.dropout))
+                         .float().mean())
+    for z in (zeroed, tower_zeroed):
+        check(abs(z - cfg.model.dropout) <= 0.01,
+              f"dropout zeroes {z!r}, want {cfg.model.dropout} +- 0.01")
     summary["dropout_zero_share"] = zeroed
+    summary["tower_dropout_zero_share"] = tower_zeroed
     log(f"training: launches {json.dumps(launches)}; dropout zeroes "
-        f"{zeroed!r} of a [16384, 256] mask")
+        f"{zeroed!r} (attention) and {tower_zeroed!r} (tower) of a "
+        f"[16384, 256] mask")
     return launches, summary
 
 
-def _tree_check(torch, a_tree, b_tree, lr, steps):
-    """Card params against CPU params: at least 99.99% of all elements
-    within 1e-4 of their leaf's largest magnitude, and every element
-    within 3 * steps * lr.  Adam's first step moves every element with a
+def phase_training_sequence(torch):
+    """Config B: the quality config (sequence, independent) and its joint
+    twin, 30 steps each with the train split's per-user history, then a
+    few steps with causal per-example histories in the batch.  Returns
+    (launches per kernel over the phase, summary)."""
+    from ncf_tpu_torch.data import BatchIterator
+    from ncf_tpu_torch.models import get_model
+    from ncf_tpu_torch.ops import embedding
+
+    embedding.set_scatter_impl("fast")
+    model = get_model("advanced_ncf")
+    counters = _launch_counters()
+    for c in counters.values():
+        c.reset()
+    summary = {}
+    for path, name in ((QUALITY, "quality"), (SEQUENCE, "sequence")):
+        t0 = time.perf_counter()
+        cfg, it, consts, _, train_inter = _training_setup(torch, path)
+        check(cfg.model.use_sequence and cfg.model.fused_tower == "auto",
+              f"config {name}: not a sequence model under fused_tower auto")
+        hist = train_inter.recent_history(cfg.model.history_len)
+        batches = list(it.epoch(0))
+        what = f"{name}/{cfg.model.candidate_mode}"
+        losses, acc = _train_steps(torch, model, cfg, consts, batches,
+                                   TRAIN_STEPS, PER_STEP_SEQ, what, hist)
+        first, last = _loss_fell(losses, what)
+        summary[what] = {"first5": first, "last5": last, "acc": acc}
+        log(f"training[{what}]: {TRAIN_STEPS} steps with history "
+            f"{list(hist.shape)}, loss {first!r} -> {last!r}, accuracy "
+            f"{acc!r} ({time.perf_counter() - t0:.1f} s)")
+    # causal per-example prefixes shipped as a batch column
+    t0 = time.perf_counter()
+    cfg, _, consts, _, train_inter = _training_setup(torch, SEQUENCE)
+    cfg.model.causal_history = True
+    ctx = train_inter.causal_history(cfg.model.history_len)
+    it = BatchIterator(train_inter, cfg.train.batch_size, seed=cfg.train.seed,
+                       extra_cols={"history": ctx})
+    batches = [b for _, b in zip(range(CAUSAL_STEPS), it.epoch(0))]
+    check(batches[0]["history"].shape == (cfg.train.batch_size,
+                                          cfg.model.history_len),
+          "causal batches carry no history column")
+    losses, acc = _train_steps(torch, model, cfg, consts, batches,
+                               CAUSAL_STEPS, PER_STEP_SEQ, "causal")
+    summary["causal"] = {"losses": losses.tolist(), "acc": acc}
+    log(f"training[causal]: {CAUSAL_STEPS} steps with [N, "
+        f"{cfg.model.history_len}] per-example histories, losses "
+        f"{losses.tolist()} ({time.perf_counter() - t0:.1f} s)")
+    del ctx, it, batches
+    launches = {k: c.value for k, c in counters.items()}
+    log(f"training_sequence: launches {json.dumps(launches)}")
+    return launches, summary
+
+
+def _tree_check(torch, a_tree, b_tree, lr, steps, share=1e-4):
+    """Card params against CPU params: all but ``share`` of all elements
+    (0.01% by default) within 1e-4 of their leaf's largest magnitude, and
+    every element within 3 * steps * lr.  Adam's first step moves every element with a
     nonzero gradient by about lr whatever the gradient's size, so an
     element whose gradient is zero up to rounding may step either way on
     the two devices; such elements fall in any leaf, so the budget is the
@@ -726,23 +958,26 @@ def _tree_check(torch, a_tree, b_tree, lr, steps):
               f"{float(diff.max())!r}")
         worst, outside, total = (max(worst, float(diff.max())),
                                  outside + bad, total + diff.numel())
-    check(outside <= total // 10_000,
+    check(outside <= total * share,
           f"card vs CPU: {outside} of {total} elements differ ({where})")
     return worst, outside, total, where
 
 
-def phase_card_vs_cpu(torch, advanced_ncf):
+def phase_card_vs_cpu(torch, advanced_ncf, tower_mode):
     """Three full-width steps in f32 with dropout 0, from the same params
-    and negatives, on the card and through the port on the CPU."""
+    and negatives, on the card and through the port on the CPU.
+    ``tower_mode`` "off" runs the plain tower on both; "on" runs the fused
+    kernels on the card and their plain version on the CPU."""
     from ncf_tpu_torch.convert import tree_map
     from ncf_tpu_torch.data import sample_negatives_stratified
     from ncf_tpu_torch.models import get_model
-    from ncf_tpu_torch.ops import embedding
+    from ncf_tpu_torch.ops import embedding, tower
     from ncf_tpu_torch.train import make_optimizer, make_train_step
 
-    cfg, it, consts, _ = _training_setup(torch)
+    cfg, it, consts, _, _ = _training_setup(torch)
     cfg.model.compute_dtype = "float32"
     cfg.model.dropout = 0.0
+    cfg.model.fused_tower = tower_mode
     # f32 table gradients: the rounding modes are held per kernel in
     # phase 3; here the two devices should differ only in summation order
     embedding.set_scatter_impl("xla")
@@ -763,25 +998,154 @@ def phase_card_vs_cpu(torch, advanced_ncf):
         step = make_train_step(model, cfg, opt, cdf, *consts[1:], device=dev)
         g = torch.Generator(device=dev)
         t0 = time.perf_counter()
+        f0 = tower.fused_tower.fwd_launches.value
+        b0 = tower.fused_tower.bwd_launches.value
         losses[where] = []
         for b, n in zip(batches, negs):
             p, state, g, m = step(p, state, g, b, n)
             losses[where].append(float(m["loss"]))
         out[where] = (p, state)
-        log(f"card_vs_cpu: 3 steps on {dev} in "
+        want = 3 if (tower_mode == "on" and dev == "cuda") else 0
+        check(tower.fused_tower.fwd_launches.value - f0 == want
+              and tower.fused_tower.bwd_launches.value - b0 == want,
+              f"card_vs_cpu[{tower_mode}] on {dev}: tower kernel launches")
+        log(f"card_vs_cpu[{tower_mode}]: 3 steps on {dev} in "
             f"{time.perf_counter() - t0:.1f} s, losses {losses[where]}")
     for a, b in zip(losses["card"], losses["cpu"]):
         check(abs(a - b) <= 1e-4 * abs(b), f"card vs CPU loss {a} vs {b}")
+    # the fused tower rounds its f32 input and its activations to bf16:
+    # where the two devices' f32 values (equal to ~1e-7) straddle a bf16
+    # rounding boundary, that example's tower row moves by up to ~1e-2,
+    # and so do the gradients of its user and item rows and, slightly,
+    # every tower weight; Adam turns gradients near zero into steps of
+    # either sign, so the share of elements beyond 1e-4 grows from 0 to
+    # about 1% of the tree
     worst, outside, total, where = _tree_check(
-        torch, out["card"][0], out["cpu"][0], cfg.train.learning_rate, 3)
+        torch, out["card"][0], out["cpu"][0], cfg.train.learning_rate, 3,
+        share=0.02 if tower_mode == "on" else 1e-4)
     check(int(out["card"][1]["count"]) == 3, "card: Adam count != 3")
-    log(f"card_vs_cpu: params agree (max |diff| {worst!r}, {outside} of "
-        f"{total} elements beyond 1e-4 of their leaf's scale, in leaves "
-        f"{where})")
+    log(f"card_vs_cpu[{tower_mode}]: params agree (max |diff| {worst!r}, "
+        f"{outside} of {total} elements beyond 1e-4 of their leaf's scale, "
+        f"in leaves {where})")
     del out, params, host
     torch.cuda.empty_cache()
-    return {"max_abs_param_diff": worst, "elements_outside": outside,
+    return {"tower": tower_mode, "max_abs_param_diff": worst, "elements_outside": outside,
             "elements": total, "leaves_outside": where, "losses": losses}
+
+
+SEQ_SCORE_TOL = 5e-3     # probabilities: a bf16 flip in the tower moves
+                         # the MLP logit by ~1e-3
+
+
+def phase_serving_sequence(torch, advanced_ncf, ModelServer):
+    """Config B served: ``ModelServer`` over the quality config with the
+    train split's ``recent_history(50)`` (``SequenceRescoreScorer``),
+    random weights from a seed, held against the same server with
+    ``fused_tower: off``: scores within ``SEQ_SCORE_TOL``, ids equal
+    wherever the ``off`` server's scores of the two rivals differ by more.
+    Every request on the ``auto`` server launches B4f, none on ``off``.
+    Returns the B4f launches on the ``auto`` server."""
+    import copy
+
+    import numpy as np
+
+    from ncf_tpu_torch.ops import tower
+
+    cfg, _, _, inter, train_inter = _training_setup(torch, QUALITY)
+    hist = train_inter.recent_history(cfg.model.history_len)
+    dept, cat = np.asarray(inter.item_dept), np.asarray(inter.item_cat)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    params = advanced_ncf.init(gen, cfg.model)
+    off_cfg = copy.deepcopy(cfg)
+    off_cfg.model.fused_tower = "off"
+    t0 = time.perf_counter()
+    auto = ModelServer(cfg, params=params, item_dept=dept, item_cat=cat,
+                       user_history=hist, device="cuda")
+    off = ModelServer(off_cfg, params=params, item_dept=dept, item_cat=cat,
+                      user_history=hist, device="cuda")
+    launches = tower.fused_tower.fwd_launches
+    launches.reset()
+    log(f"serving_sequence: two servers over {cfg.model.num_users}x"
+        f"{cfg.model.num_items} with history {list(hist.shape)} in "
+        f"{time.perf_counter() - t0:.1f} s ({type(auto.scorer).__name__})")
+    rng = np.random.default_rng(5)
+    users = rng.choice(cfg.model.num_users, 64, replace=False)
+    temporal = {"hour": 20, "day": 5, "month": 3, "day_of_year": 70}
+    worst, swaps, n_req = 0.0, 0, 0
+
+    def same(got, want, uids, what):
+        nonlocal worst, swaps
+        (gs, gi), (ws, wi) = got, want
+        gs, gi = np.atleast_2d(gs), np.atleast_2d(gi)
+        ws, wi = np.atleast_2d(ws), np.atleast_2d(wi)
+        check(np.isfinite(gs).all() and gs.shape == ws.shape,
+              f"serving_sequence {what}: bad scores")
+        worst = max(worst, float(np.abs(gs - ws).max()))
+        check(np.abs(gs - ws).max() <= SEQ_SCORE_TOL,
+              f"serving_sequence {what}: scores differ by "
+              f"{float(np.abs(gs - ws).max())!r}")
+        for r, j in zip(*np.nonzero(gi != wi)):
+            pair = off.get_predictions(int(uids[r]), [gi[r, j], wi[r, j]],
+                                       None if "temporal" not in what
+                                       else temporal)
+            check(abs(float(pair[0] - pair[1])) <= SEQ_SCORE_TOL,
+                  f"serving_sequence {what}: ids differ where the scores "
+                  f"are not tied")
+            swaps += 1
+
+    def served(fn, what):
+        nonlocal n_req
+        n0 = launches.value
+        out = fn(auto)
+        check(launches.value > n0, f"serving_sequence {what}: B4f not "
+              "launched")
+        n1 = launches.value
+        want = fn(off)
+        check(launches.value == n1, f"serving_sequence {what}: the off "
+              "server launched B4f")
+        n_req += 1
+        return out, want
+
+    try:
+        for u in users[:8]:
+            got, want = served(lambda s: s.recommend(int(u), k=10)[:2],
+                               "recommend")
+            same(got, want, [u], "recommend")
+        u = int(users[0])
+        seen = rng.choice(cfg.model.num_items, 50, replace=False)
+        seen[:5] = auto.recommend(u, k=5)[1]
+        got, want = served(lambda s: s.recommend(
+            u, k=10, exclude_items=seen.tolist())[:2], "exclusion")
+        check(not set(seen.tolist()) & set(got[1].tolist()),
+              "serving_sequence: an excluded item was served")
+        same(got, want, [u], "exclusion")
+        got, want = served(lambda s: s.recommend(
+            u, k=10, temporal=temporal)[:2], "temporal")
+        same(got, want, [u], "temporal")
+        got, want = served(lambda s: s.recommend_batch(users, k=10)[:2],
+                           "batch")
+        same(got, want, users, "batch")
+        items = rng.choice(cfg.model.num_items, 20, replace=False)
+        got, want = served(lambda s: s.get_predictions(u, items), "pairs")
+        check(np.abs(got - want).max() <= SEQ_SCORE_TOL,
+              "serving_sequence: pair scores differ")
+        worst = max(worst, float(np.abs(got - want).max()))
+        ms = [auto.recommend(int(users[j % 64]), k=10)[2] for j in range(20)]
+        many = [auto.recommend_batch(users, k=10)[2] for _ in range(10)]
+    finally:
+        auto.close()
+        off.close()
+    out = {"requests": n_req, "b4f_launches": launches.value,
+           "max_score_diff": worst, "near_tie_id_swaps": swaps,
+           "p50_ms_1_user": float(np.median(ms)),
+           "p50_ms_64_users": float(np.median(many))}
+    log(f"serving_sequence: {n_req} requests agree with the off path "
+        f"(max |score diff| {worst!r}, {swaps} near-tie id swaps), B4f "
+        f"launches {launches.value}; p50 {out['p50_ms_1_user']!r} ms (1 "
+        f"user), {out['p50_ms_64_users']!r} ms (64 users)")
+    del auto, off, params
+    torch.cuda.empty_cache()
+    return out
 
 
 def _bound(nbytes, ops, peak_ops):
@@ -898,23 +1262,88 @@ def _time_training_kernels(torch, batch, negs, params, cfg, consts):
     return rows
 
 
-def phase_training_timing(torch, advanced_ncf):
-    """Step time and examples/s on the main config (stratified, joint,
-    bf16, dropout 0.2), a profiler window of 20 steps, and the training
-    kernels' times."""
-    from ncf_tpu_torch.data import sample_negatives_stratified
-    from ncf_tpu_torch.models import get_model
-    from ncf_tpu_torch.ops import embedding
+def _time_tower(torch):
+    """B4f and B4b at the three tower shapes of the training steps (dropout
+    0.2): the kernel call (CUDA events and profiler device time), its plain
+    version, the plain layers that ``off`` runs instead (eager
+    ``mlp_tower``, forward and forward + backward through autograd) and
+    the bound.  No single PyTorch call computes the fused tower, so there
+    is no library time."""
+    from ncf_tpu_torch.models.layers import mlp_tower
+    from ncf_tpu_torch.ops import tower
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(41)
+    rate = 0.2
+    rows_out = []
+    for rows, d0 in TOWER_SHAPES:
+        layers = _tower_layers(torch, d0, TOWER_HIDDEN, gen)
+        flat = _tower_leaves(layers)
+        x2 = torch.randn((rows, d0), generator=gen, device=dev).to(
+            torch.bfloat16)
+        dy = torch.randn((rows, TOWER_HIDDEN[-1]), generator=gen, device=dev)
+        seed = torch.randint(0, 2 ** 31 - 1, (1,), generator=gen, device=dev,
+                             dtype=torch.int32)
+        dims = [d0] + TOWER_HIDDEN
+        macs = rows * sum(dims[i] * dims[i + 1] for i in range(3))
+        n_params = sum(p.numel() for p in flat)
+        fwd = functools.partial(tower._fwd_cuda, x2, seed, flat, rate)
+        bwd = functools.partial(tower._bwd_cuda, x2, dy, seed, flat, rate)
+        leaves = [p.detach().clone().requires_grad_(True) for p in flat]
+        it = iter(leaves)
+        tracked = [{"dense": {"w": next(it), "b": next(it)},
+                    "norm": {"scale": next(it), "bias": next(it)}}
+                   for _ in layers]
+
+        def off_fwd():
+            with torch.no_grad():
+                mlp_tower(layers, x2, rate, gen, False, torch.bfloat16)
+
+        def off_both():
+            mlp_tower(tracked, x2, rate, gen, False,
+                      torch.bfloat16).backward(dy)
+
+        def fused_both():
+            tower.fused_tower(tracked, x2, rate, gen, False).backward(dy)
+
+        shape = f"[{rows}, {d0}]"
+        b_f, by_f = _bound(rows * d0 * 2 + rows * dims[-1] * 4 + n_params * 4,
+                           2 * macs, PEAK_FLOP_S["bfloat16"])
+        b_b, by_b = _bound(rows * d0 * 4 + rows * dims[-1] * 4
+                           + n_params * 8, 4 * macs, PEAK_FLOP_S["float32"])
+        off_f, off_fb = cuda_ms(off_fwd, 20), cuda_ms(off_both, 10)
+        rows_out.append({
+            "kernel": "fused_tower_fwd", "shape": shape, "ms": cuda_ms(fwd, 20),
+            **_device_fields(fwd),
+            "plain_ms": cuda_ms(lambda: tower._fwd_ref(x2, seed, flat, rate),
+                                3, warmup=1),
+            "library_ms": None, "off_path_ms": off_f,
+            "bound_ms": b_f, "bound_by": by_f})
+        rows_out.append({
+            "kernel": "fused_tower_bwd", "shape": shape, "ms": cuda_ms(bwd, 10),
+            **_device_fields(bwd),
+            "plain_ms": cuda_ms(lambda: tower._bwd_ref(x2, dy, seed, flat,
+                                                       rate), 3, warmup=1),
+            "library_ms": None, "off_path_ms": off_fb,
+            "fused_fwd_bwd_ms": cuda_ms(fused_both, 10),
+            "bound_ms": b_b, "bound_by": by_b})
+        del layers, flat, leaves, tracked, x2, dy
+        torch.cuda.empty_cache()
+    return rows_out
+
+
+def _time_step(torch, cfg, batches, consts, what, user_history=None):
+    """Host-clock step time (median of five windows of 20), CUDA-event
+    time and a profiler window of 20 steps; returns (summary, params, gen)."""
+    from ncf_tpu_torch.models import advanced_ncf, get_model
     from ncf_tpu_torch.train import make_optimizer, make_train_step
 
-    cfg, it, consts, _ = _training_setup(torch)
-    embedding.set_scatter_impl("fast")
-    batches = list(it.epoch(1))
     gen = torch.Generator(device="cuda").manual_seed(7)
     params = advanced_ncf.init(gen, cfg.model)
     opt = make_optimizer(cfg.train, steps_per_epoch=len(batches))
     state = opt.init(params)
-    step = make_train_step(get_model("advanced_ncf"), cfg, opt, *consts)
+    step = make_train_step(get_model("advanced_ncf"), cfg, opt, *consts,
+                           user_history=user_history)
     box = {"p": params, "s": state, "g": gen, "i": 0}
 
     def one():
@@ -937,31 +1366,71 @@ def phase_training_timing(torch, advanced_ncf):
     host_ms = statistics.median(windows)
     dev_ms = cuda_ms(one, 40, warmup=0)
     B = cfg.train.batch_size
-    summary = {"step_ms_host_clock": host_ms, "step_ms_windows": windows,
-               "step_ms_cuda_events": dev_ms,
+    summary = {"what": what, "step_ms_host_clock": host_ms,
+               "step_ms_windows": windows, "step_ms_cuda_events": dev_ms,
                "examples_per_s": B / (host_ms / 1e3), "batch": B}
-    log(f"training timing: step {host_ms!r} ms (host clock, synchronised, "
-        f"median of 5 windows of 20: {windows}), {dev_ms!r} ms (CUDA "
-        f"events), {summary['examples_per_s']!r} examples/s at batch {B}")
     prof = device_profile(one, 20)
     if prof is not None:
-        summary["profile"] = prof
-        log("profile_json: " + json.dumps({"what": "training step", **prof}))
+        summary["device_ms_per_step"] = prof["device_ms_per_call"]
+        summary["device_ops_per_step"] = prof["device_ops_per_call"]
+        log("profile_json: " + json.dumps({"what": f"training step {what}",
+                                           **prof}))
+    log(f"training timing[{what}]: step {host_ms!r} ms (host clock, median "
+        f"of 5 windows of 20: {windows}), {dev_ms!r} ms (CUDA events), "
+        f"device {summary.get('device_ms_per_step')!r} ms and "
+        f"{summary.get('device_ops_per_step')!r} operations a step, "
+        f"{summary['examples_per_s']!r} examples/s at batch {B}")
+    return summary, box["p"], box["g"]
+
+
+def phase_training_timing(torch):
+    """Step time and examples/s for config A (stratified, bf16, dropout
+    0.2) under ``fused_tower`` auto and off in both candidate modes, and
+    for config B; the training kernels' times."""
+    from ncf_tpu_torch.data import sample_negatives_stratified
+    from ncf_tpu_torch.ops import embedding
+
+    embedding.set_scatter_impl("fast")
+    steps = []
+    cfg, it, consts, _, _ = _training_setup(torch)
+    batches = list(it.epoch(1))
+    for mode in ("joint", "independent"):
+        for tower_mode in ("auto", "off"):
+            cfg.model.candidate_mode, cfg.model.fused_tower = mode, tower_mode
+            summary, params, gen = _time_step(
+                torch, cfg, batches, consts, f"A {mode} {tower_mode}")
+            steps.append(summary)
+            if (mode, tower_mode) == ("joint", "auto"):
+                main_params, main_gen = params, gen
+            else:
+                del params
+    for path, name in ((QUALITY, "B quality"), (SEQUENCE, "B sequence")):
+        bcfg, bit, bconsts, _, train_inter = _training_setup(torch, path)
+        hist = train_inter.recent_history(bcfg.model.history_len)
+        summary, params, _ = _time_step(
+            torch, bcfg, list(bit.epoch(1)), bconsts,
+            f"{name} {bcfg.model.candidate_mode} auto", hist)
+        steps.append(summary)
+        del params
+    torch.cuda.empty_cache()
+    cfg.model.candidate_mode, cfg.model.fused_tower = "joint", "auto"
     b = batches[0]
     negs = sample_negatives_stratified(
-        gen, torch.as_tensor(b["item_ids"], device="cuda"),
+        main_gen, torch.as_tensor(b["item_ids"], device="cuda"),
         cfg.model.num_items, cfg.model.negative_samples, cdf=consts[0])
-    rows = _time_training_kernels(torch, b, negs, box["p"], cfg, consts)
+    rows = _time_training_kernels(torch, b, negs, main_params, cfg, consts)
+    rows += _time_tower(torch)
     for r in rows:
         log(f"timing: {r['kernel']} [{r['shape']}] kernel {r['ms']!r} ms "
             f"(device {r['device_ms']!r} ms), plain {r['plain_ms']!r} ms, "
-            f"library {r['library_ms']!r} ms, bound {r['bound_ms']!r} ms "
+            f"library {r['library_ms']!r} ms, off path "
+            f"{r.get('off_path_ms')!r} ms, bound {r['bound_ms']!r} ms "
             f"({r['bound_by']})")
     log("training_timing_json: " + json.dumps(rows))
-    log("training_json: " + json.dumps(summary))
-    del box, params, state
+    log("training_json: " + json.dumps(steps))
+    del main_params
     torch.cuda.empty_cache()
-    return rows, summary
+    return rows, steps
 
 
 def main() -> int:
@@ -1000,6 +1469,7 @@ def main() -> int:
     t0 = time.perf_counter()
     max_err = {"topk_scores_streaming": phase_kernel_vs_plain(torch, topk)}
     max_err.update(phase_training_kernels_vs_plain(torch))
+    max_err.update(phase_tower_kernels_vs_plain(torch))
     log(f"phase kernel_vs_plain {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
@@ -1018,28 +1488,46 @@ def main() -> int:
     log(f"phase demo {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    launches, summary = phase_training(torch, advanced_ncf)
-    launches["topk_scores_streaming"] = main_launches
+    launches, summary = phase_training(torch)
     log(f"phase training {time.perf_counter() - t0:.1f} s")
     log("training_summary_json: " + json.dumps(summary))
 
     t0 = time.perf_counter()
-    log("card_vs_cpu_json: " + json.dumps(phase_card_vs_cpu(torch,
-                                                            advanced_ncf)))
-    log(f"phase card_vs_cpu {time.perf_counter() - t0:.1f} s")
+    seq_launches, seq_summary = phase_training_sequence(torch)
+    log(f"phase training_sequence {time.perf_counter() - t0:.1f} s")
+    log("training_sequence_json: " + json.dumps(seq_summary))
+    for k, v in seq_launches.items():
+        launches[k] += v
+    launches["topk_scores_streaming"] = main_launches
+
+    for tower_mode in ("off", "on"):
+        t0 = time.perf_counter()
+        log("card_vs_cpu_json: " + json.dumps(
+            phase_card_vs_cpu(torch, advanced_ncf, tower_mode)))
+        log(f"phase card_vs_cpu[{tower_mode}] "
+            f"{time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    train_rows, _ = phase_training_timing(torch, advanced_ncf)
+    seq_serving = phase_serving_sequence(torch, advanced_ncf, ModelServer)
+    launches["fused_tower_fwd"] += seq_serving["b4f_launches"]
+    log(f"phase serving_sequence {time.perf_counter() - t0:.1f} s")
+    log("serving_sequence_json: " + json.dumps(seq_serving))
+
+    t0 = time.perf_counter()
+    train_rows, _ = phase_training_timing(torch)
     log(f"phase training_timing {time.perf_counter() - t0:.1f} s")
 
     # one timed shape per kernel: the serving bucket for B5, the pooled
-    # stratified draw for B1, the item table for B2, the step for B3
+    # stratified draw for B1, the item table for B2, the step for B3, the
+    # joint tower of config A for B4f and B4b
     main_rows = {"topk_scores_streaming": rows[0]}
     for r in train_rows:
         if (r["kernel"], r["shape"]) in (
                 ("tree_sample_negatives", "stratified"),
                 ("onehot_scatter_add", "item"),
-                ("fused_lookup_sum", "step")):
+                ("fused_lookup_sum", "step"),
+                ("fused_tower_fwd", "[16384, 96]"),
+                ("fused_tower_bwd", "[16384, 96]")):
             main_rows[r["kernel"]] = r
     entries = []
     for name, (source, replaces) in KERNELS.items():

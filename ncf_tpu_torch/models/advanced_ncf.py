@@ -7,15 +7,17 @@ linear map ``Wo(Wv x + bv) + bo``, and the vocabulary-level precompute
 when the vocabulary is smaller than the batch's occurrences.
 
 What is ported: ``apply`` in eval and training mode, in both
-``candidate_attention`` modes and both vocab branches, ``score_candidates``,
-``score_items_with_hour`` and the embedding exports.  Training dropout sits
-where the reference puts it (``advanced_ncf.py:305-308``): on the attention
-weights, in the tower and on the hierarchy vector.  Its masks come from
-one ``torch.Generator`` (``rng``) drawn in call order; the reference folds
-a role index into its key, so the two agree in distribution only.  The
-sequence path (``use_sequence=True``) and the fused tower kernel
-(``fused_tower`` ``"on"``/``"interpret"``) raise ``NotImplementedError``
-until their slices.
+``candidate_attention`` modes and both vocab branches, with the sequence
+path (``use_sequence``: the user query attends the user's recent items
+through ``sequence_attn``), ``score_candidates``, ``score_items_with_hour``
+and the embedding exports.  Training dropout sits where the reference
+puts it (``advanced_ncf.py:305-308``): on the attention weights, in the
+tower and on the hierarchy vector.  Its masks come from one
+``torch.Generator`` (``rng``) drawn in call order; the reference folds a
+role index into its key, so the two agree in distribution only.  The
+tower routes as the reference's ``_tower`` does, with "on a TPU" read as
+"on the card": ``fused_tower`` ``"auto"`` takes the fused kernels (B4,
+``ops/tower.py``) for a bf16 CUDA tower that ``tower_fits``.
 """
 
 from __future__ import annotations
@@ -38,24 +40,20 @@ from ncf_tpu_torch.models.layers import (
     mlp_tower_init,
 )
 from ncf_tpu_torch.ops.embedding import embedding_lookup
+from ncf_tpu_torch.ops.tower import fused_tower, tower_fits
 from ncf_tpu_torch.utils.config import ModelConfig
 from ncf_tpu_torch.utils.device import torch_dtype
 
 Params = Dict[str, Any]
 
 
-def _no_sequence(cfg: ModelConfig) -> None:
-    if cfg.use_sequence:
-        raise NotImplementedError(
-            "use_sequence models are not ported yet")
-
-
 def init(gen: torch.Generator, cfg: ModelConfig, device=None) -> Params:
     """Build the parameter dict; tensors live on ``device`` (default: the
     generator's device).  ``device="meta"`` gives a shape-only template."""
-    _no_sequence(cfg)
     dev = torch.device(device) if device is not None else gen.device
     combined_dim = cfg.mlp_dim + cfg.temporal_dim
+    if cfg.use_sequence:
+        combined_dim += cfg.mlp_dim
     # MF and MLP tables are stored fused along the feature axis, as in
     # the JAX package
     params: Params = {
@@ -74,6 +72,8 @@ def init(gen: torch.Generator, cfg: ModelConfig, device=None) -> Params:
         "temporal": temporal_mod.init(gen, cfg.temporal_dim, dev),
         "temporal_proj": dense_init(gen, cfg.temporal_dim, cfg.mf_dim, dev),
     }
+    if cfg.use_sequence:
+        params["sequence_attn"] = mha_init(gen, cfg.mlp_dim, dev)
     if cfg.use_category:
         params["category"] = {
             "dept": embedding_init(gen, cfg.num_departments, cfg.mlp_dim,
@@ -173,14 +173,23 @@ def _use_vocab_precompute(cfg: ModelConfig, batch_rows: int) -> bool:
 
 
 def _tower(layers, x, cfg: ModelConfig, rng, deterministic: bool, dtype):
-    """The MLP tower.  ``fused_tower`` ``"off"`` and ``"auto"`` run the
-    plain layers, as the reference does off a TPU; the fused kernel (B4)
-    behind ``"on"`` and ``"interpret"`` is not ported yet."""
+    """The MLP tower, routed as the reference routes it
+    (``advanced_ncf.py:235-262``): ``"auto"`` takes the fused kernels for
+    a bf16 tower on the card whose shape ``tower_fits``, else the plain
+    layers; ``"on"`` and ``"interpret"`` always take fused semantics (the
+    kernels on the card, their plain version on the CPU) and raise where
+    the shape does not fit; ``"off"`` takes the plain layers.
+    ``remat_tower`` only changes memory, so it needs nothing here."""
     mode = getattr(cfg, "fused_tower", "off")
-    if mode in ("on", "interpret"):
-        raise NotImplementedError(
-            f"fused_tower={mode!r}: the fused tower kernel (B4, "
-            "ops/pallas_tower.py) is not ported yet")
+    if mode in ("auto", "on", "interpret"):
+        fits = tower_fits(layers, x.shape[-1])
+        auto_ok = fits and x.is_cuda and x.dtype == torch.bfloat16
+        if mode in ("on", "interpret") or auto_ok:
+            if not fits:
+                raise ValueError(
+                    f"fused_tower={mode!r} but the tower shape does not fit "
+                    f"(in_dim={x.shape[-1]})")
+            return fused_tower(layers, x, cfg.dropout, rng, deterministic)
     return mlp_tower(layers, x, cfg.dropout, rng, deterministic, dtype)
 
 
@@ -201,8 +210,9 @@ def apply(
 ) -> torch.Tensor:
     """Forward pass -> logits [B, S].  Training mode
     (``deterministic=False``) draws its dropout masks from ``rng``, a
-    ``torch.Generator`` on the ids' device."""
-    _no_sequence(cfg)
+    ``torch.Generator`` on the ids' device.  ``history`` (int [B, H],
+    padded with -1) is the user's recent items when ``cfg.use_sequence``;
+    without it the sequence slot of the tower input is zero."""
     B, S = item_ids.shape
     dtype = torch_dtype(cfg.compute_dtype)
     use_cat = (cfg.use_category and item_dept is not None
@@ -246,6 +256,44 @@ def apply(
                 cfg.dropout, rng, deterministic, dtype)
             item_mlp = item_mlp + hier.reshape(B, S, -1)
 
+    # ---- sequence path (``advanced_ncf.py:367-420``)
+    seq_vec = None
+    if cfg.use_sequence:
+        if history is not None:
+            hmask = history >= 0
+            hsafe = history.clamp(min=0)
+            if vocab:
+                # K and V are pointwise in the key row: project the item
+                # table once into one [V, 2dm] table and gather it once
+                sa = params["sequence_attn"]
+                item_seq_t = item_t[:, dmf:]
+                kv_t = torch.cat([dense(sa["k"], item_seq_t, dtype),
+                                  dense(sa["v"], item_seq_t, dtype)],
+                                 dim=-1).to(dtype)            # [V, 2dm]
+                kv = embedding_lookup(kv_t, hsafe)           # [B, H, 2dm]
+                seq_vec = _sqa_core(
+                    sa, dense(sa["q"], user_mlp, dtype), kv[..., :cfg.mlp_dim],
+                    kv[..., cfg.mlp_dim:], cfg.num_heads, cfg.dropout, rng,
+                    deterministic, dtype, key_mask=hmask)
+            else:
+                seq_emb = layer_norm(
+                    params["mlp_norm"],
+                    embedding_lookup(params["item_emb"], hsafe)[..., dmf:])
+                if use_cat:
+                    ids = hsafe.long()
+                    seq_hier = _hierarchy_table(
+                        params["category"], item_dept[ids].reshape(-1),
+                        item_cat[ids].reshape(-1),
+                        cfg.dropout, rng, deterministic, dtype)
+                    seq_emb = seq_emb + seq_hier.reshape(seq_emb.shape)
+                seq_vec = _single_query_attention(
+                    params["sequence_attn"], user_mlp, seq_emb,
+                    cfg.num_heads, cfg.dropout, rng, deterministic, dtype,
+                    key_mask=hmask)                          # [B, dm]
+        else:
+            seq_vec = torch.zeros((B, cfg.mlp_dim), dtype=torch.float32,
+                                  device=user_mlp.device)
+
     # ---- MF path: elementwise product -> Linear(d,1)
     mf_vector = user_mf[:, None, :] * item_mf                # [B, S, dmf]
     mf_pred = dense(params["mf_out"], mf_vector.to(dtype))   # [B, S, 1] f32
@@ -264,7 +312,10 @@ def apply(
         attn = _single_query_attention(
             params["attn"], user_mlp, item_mlp, cfg.num_heads,
             cfg.dropout, rng, deterministic, dtype)          # [B, dm]
-        combined = torch.cat([attn.to(dtype), t_vec.to(dtype)], dim=-1)
+        parts = [attn.to(dtype)]
+        if seq_vec is not None:
+            parts.append(seq_vec.to(dtype))
+        combined = torch.cat(parts + [t_vec.to(dtype)], dim=-1)
         mlp_vec = _tower(params["mlp"], combined, cfg, rng,
                          deterministic, dtype)
         mlp_pred = dense(params["mlp_out"], mlp_vec)          # [B, 1]
@@ -273,7 +324,11 @@ def apply(
         attn = _singleton_attention(
             params["attn"], item_mlp.to(dtype), dtype)        # [B, S, dm]
         t_b = t_vec[:, None, :].expand(B, S, cfg.temporal_dim)
-        combined = torch.cat([attn.to(dtype), t_b.to(dtype)], dim=-1)
+        parts = [attn.to(dtype)]
+        if seq_vec is not None:
+            parts.append(seq_vec[:, None, :].expand(
+                B, S, cfg.mlp_dim).to(dtype))
+        combined = torch.cat(parts + [t_b.to(dtype)], dim=-1)
         mlp_vec = _tower(params["mlp"], combined, cfg, rng,
                          deterministic, dtype)
         mlp_pred = dense(params["mlp_out"], mlp_vec)          # [B, S, 1]
@@ -310,8 +365,8 @@ def score_items_with_hour(
     history: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Hour-of-day scoring: product embeddings modulated by
-    ``(1 + 0.3 * proj(hour_emb))``.  Returns probabilities [B]."""
-    _no_sequence(cfg)
+    ``(1 + 0.3 * proj(hour_emb))``.  Returns probabilities [B].  A
+    sequence model attends ``history`` (zeros without it)."""
     dtype = torch_dtype(cfg.compute_dtype)
     B = user_ids.shape[0]
 
@@ -335,7 +390,22 @@ def score_items_with_hour(
     else:
         t_vec = torch.zeros((B, cfg.temporal_dim), dtype=torch.float32,
                             device=user_mf.device)
-    combined = torch.cat([attn.to(dtype), t_vec.to(dtype)], dim=-1)
+    parts = [attn.to(dtype)]
+    if cfg.use_sequence:
+        if history is not None:
+            user_mlp = layer_norm(params["mlp_norm"], user_full[:, dmf:])
+            seq_emb = layer_norm(
+                params["mlp_norm"],
+                embedding_lookup(params["item_emb"],
+                                 history.clamp(min=0))[..., dmf:])
+            seq_vec = _single_query_attention(
+                params["sequence_attn"], user_mlp, seq_emb, cfg.num_heads,
+                0.0, None, True, dtype, key_mask=history >= 0)
+        else:
+            seq_vec = torch.zeros((B, cfg.mlp_dim), dtype=torch.float32,
+                                  device=user_mf.device)
+        parts.append(seq_vec.to(dtype))
+    combined = torch.cat(parts + [t_vec.to(dtype)], dim=-1)
     mlp_vec = mlp_tower(params["mlp"], combined, dtype=dtype)
     mlp_pred = dense(params["mlp_out"], mlp_vec)
 

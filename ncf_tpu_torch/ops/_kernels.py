@@ -25,7 +25,8 @@ _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
-SOURCES = ("topk_streaming", "tree_sampler", "scatter_add", "temporal_sum")
+SOURCES = ("topk_streaming", "tree_sampler", "scatter_add", "temporal_sum",
+           "fused_tower")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -100,8 +101,10 @@ def library(name: str) -> ctypes.CDLL:
         return _libs[name]
 
 
-# argument codes for ``bind``: a pointer (or the stream), an int, a 64-bit int
-_CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "l": ctypes.c_longlong}
+# argument codes for ``bind``: a pointer (or the stream), an int, a 64-bit
+# int, a float
+_CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "l": ctypes.c_longlong,
+           "f": ctypes.c_float}
 
 
 def bind(name: str, fn_name: str, signature: str):

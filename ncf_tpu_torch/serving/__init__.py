@@ -1,4 +1,5 @@
-from ncf_tpu_torch.serving.scorer import AdvancedNCFScorer
+from ncf_tpu_torch.serving.scorer import (AdvancedNCFScorer,
+                                          SequenceRescoreScorer)
 from ncf_tpu_torch.serving.server import ModelServer
 
-__all__ = ["AdvancedNCFScorer", "ModelServer"]
+__all__ = ["AdvancedNCFScorer", "ModelServer", "SequenceRescoreScorer"]

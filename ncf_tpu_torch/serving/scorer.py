@@ -17,9 +17,13 @@ streaming kernel against a once-prepared table per bias context.
 Each request makes one device-to-host copy: the values and the ids come
 back together in one ``.cpu()``.
 
+``SequenceRescoreScorer`` serves ``use_sequence`` models in two stages:
+candidates from the decomposition at a population-mean sequence context,
+then an exact rescore of them with each user's real history through
+``score_candidates`` (whose tower is the fused kernel B4f on the card).
+
 Not ported yet: the ``int8``/``int8-fast`` presets (their kernel is the
-TPU's ``topk_scores_streaming_int8``), ``SequenceRescoreScorer`` and
-``BruteForceScorer``.
+TPU's ``topk_scores_streaming_int8``) and ``BruteForceScorer``.
 """
 
 from __future__ import annotations
@@ -76,10 +80,6 @@ class AdvancedNCFScorer:
                 f"retrieval={retrieval!r}: the int8 tier is not ported yet")
         if retrieval not in ("exact", "fast"):
             raise ValueError(f"unknown retrieval preset: {retrieval!r}")
-        if cfg.use_sequence:
-            raise NotImplementedError(
-                "use_sequence models (SequenceRescoreScorer) are not "
-                "ported yet")
         self._retrieval = retrieval
         self._seg_width, self._seg_top = {
             "exact": (128, 2), "fast": (64, 1)}[retrieval]
@@ -90,6 +90,9 @@ class AdvancedNCFScorer:
         self._bias_cache: Dict[Tuple, torch.Tensor] = {}
         self._prepared_cache: Dict[Tuple, PreparedItems] = {}
         self._bias_cache_size = bias_cache_size
+        # the sequence-context vector [dm] of the all-items tower input
+        # (SequenceRescoreScorer's stage 1); None for other models
+        self._seq_ctx: Optional[torch.Tensor] = None
         # the coalescer's dispatcher threads share the caches: fill and
         # evict under one lock (re-entrant: the hourly bias builds the
         # hour modulation)
@@ -151,7 +154,11 @@ class AdvancedNCFScorer:
             attn = advanced_ncf._singleton_attention(
                 params["attn"], x.to(dtype), dtype)
             t_vec = t_row[None, :].expand(x.shape[0], cfg.temporal_dim)
-            combined = torch.cat([attn.to(dtype), t_vec.to(dtype)], dim=-1)
+            parts = [attn.to(dtype)]
+            if self._seq_ctx is not None:
+                parts.append(self._seq_ctx[None, :].expand(
+                    x.shape[0], cfg.mlp_dim).to(dtype))
+            combined = torch.cat(parts + [t_vec.to(dtype)], dim=-1)
             mlp_vec = mlp_tower(params["mlp"], combined, dtype=dtype)
             out.append(dense(params["mlp_out"], mlp_vec)[:, 0])
         return torch.cat(out)
@@ -280,14 +287,7 @@ class AdvancedNCFScorer:
         else:
             vals, idxs = topk_scores(q, self.item_vecs, fetch, bias,
                                      impl=self.impl, seg_top=self._seg_top)
-        # one device-to-host copy for both: ids ride as f32 bit patterns
-        packed = torch.cat(
-            [vals.to(torch.float32),
-             idxs.to(torch.int32).contiguous().view(torch.float32)],
-            dim=1).cpu().numpy()
-        n = vals.shape[1]
-        vals = packed[:, :n]
-        idxs = np.ascontiguousarray(packed[:, n:]).view(np.int32)
+        vals, idxs = _to_host(vals, idxs)
         if exclude is not None:
             vals, idxs = _filter_excluded(vals, idxs, exclude, k)
         return _sigmoid(vals), idxs
@@ -301,6 +301,144 @@ class AdvancedNCFScorer:
         logits = ((q * self.item_vecs[items]).sum(-1)
                   + self.item_bias(temporal)[items])
         return torch.sigmoid(logits).cpu().numpy()
+
+
+class SequenceRescoreScorer(AdvancedNCFScorer):
+    """Two-stage retrieval for ``use_sequence`` AdvancedNCF models.
+
+    The history vector feeds the tower, so the eval MLP logit depends on
+    the user and the exact decomposition no longer holds.  Stage 1 takes
+    ``fetch`` candidates from the decomposition with the item bias
+    evaluated at a population-mean sequence context (the mean over a
+    fixed sample of users, drawn at refresh); stage 2 rescores them
+    exactly with each user's real history (``score_candidates``), masks
+    the excluded items and keeps the top k, so the returned scores are
+    true model scores.  ``topk_for_users_hourly`` is stage 1 only.
+    """
+
+    def __init__(self, params, cfg: ModelConfig, item_dept=None,
+                 item_cat=None, user_history=None, candidates: int = 54,
+                 sample_users: int = 8192, **kw):
+        self._history_np = (None if user_history is None
+                            else np.asarray(user_history, np.int32))
+        self.user_history: Optional[torch.Tensor] = None
+        self._seq_candidates = candidates
+        self._seq_sample = sample_users
+        super().__init__(params, cfg, item_dept, item_cat, **kw)
+
+    @torch.no_grad()
+    def _mean_seq_context(self, params) -> torch.Tensor:
+        cfg = self.cfg
+        hist = self.user_history
+        if hist is None or "sequence_attn" not in params:
+            return torch.zeros(cfg.mlp_dim, device=self.device)
+        dtype = torch_dtype(cfg.compute_dtype)
+        U = hist.shape[0]
+        idx = torch.as_tensor(np.random.default_rng(0).choice(
+            U, size=min(self._seq_sample, U), replace=False),
+            dtype=torch.long, device=self.device)
+        user_mlp = layer_norm(params["mlp_norm"],
+                              params["user_emb"][idx][:, cfg.mf_dim:])
+        h = hist[idx]
+        item_mlp = self._item_mlp()
+        if (cfg.use_category and self.item_dept is not None
+                and "category" in params):
+            item_mlp = item_mlp + advanced_ncf._hierarchy_table(
+                params["category"], self.item_dept, self.item_cat,
+                0.0, None, True, dtype)
+        seq_emb = item_mlp.to(dtype)[h.clamp(min=0).long()]
+        seq_vec = advanced_ncf._single_query_attention(
+            params["sequence_attn"], user_mlp, seq_emb, cfg.num_heads,
+            0.0, None, True, dtype, key_mask=h >= 0)
+        return seq_vec.to(torch.float32).mean(dim=0)
+
+    def refresh(self, params) -> None:
+        super().refresh(params)
+        if self._history_np is not None:
+            self.user_history = torch.as_tensor(self._history_np,
+                                                device=self.device)
+        with self._cache_lock:
+            # the caches are empty after super(); biases built from now
+            # on see the new context
+            self._seq_ctx = self._mean_seq_context(params)
+
+    def _temporal_ids(self, B: int, temporal: Optional[Dict[str, int]]):
+        if temporal is None:
+            return None
+        return {k: torch.full((B,), int(temporal.get(k, 0)),
+                              dtype=torch.long, device=self.device)
+                for k in ("hour", "day", "month", "day_of_year")}
+
+    def _rescore(self, ids: torch.Tensor, cand: torch.Tensor,
+                 temporal: Optional[Dict[str, int]]) -> torch.Tensor:
+        """Exact logits [B, C] of candidates ``cand`` with real history."""
+        hist = None if self.user_history is None else self.user_history[ids]
+        return advanced_ncf.score_candidates(
+            self.params, self.cfg, ids, cand,
+            self._temporal_ids(ids.shape[0], temporal), self.item_dept,
+            self.item_cat, history=hist)
+
+    @torch.no_grad()
+    def topk_for_users(
+        self,
+        user_ids,
+        k: int = 10,
+        temporal: Optional[Dict[str, int]] = None,
+        exclude: Optional[np.ndarray] = None,
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        ids = self._ids(user_ids)
+        if exclude is not None:
+            # a power-of-two exclusion width, as the reference pads it
+            # (-1 never matches a candidate)
+            w = max(1, int(exclude.shape[1]))
+            wpad = 1 << (w - 1).bit_length()
+            if wpad != w:
+                exclude = np.concatenate(
+                    [exclude, np.full((exclude.shape[0], wpad - w), -1,
+                                      exclude.dtype)], axis=1)
+        fetch = int(min(self.cfg.num_items, max(
+            k + self._seq_candidates,
+            k + (exclude.shape[1] if exclude is not None else 0))))
+        key = _context_key(temporal)
+        bias = self.item_bias(temporal)
+        prep = self._prepared(key, bias) if fetch <= 64 else None
+        q = self.user_queries[ids]
+        if prep is not None:
+            _, cand = topk_scores(q, prep, fetch, seg_top=self._seg_top)
+        else:
+            _, cand = topk_scores(q, self.item_vecs, fetch, bias,
+                                  impl=self.impl, seg_top=self._seg_top)
+        cand = cand.long()
+        logits = self._rescore(ids, cand, temporal)
+        if exclude is not None:
+            excl = torch.as_tensor(exclude, dtype=torch.long,
+                                   device=self.device)
+            hit = (cand[:, :, None] == excl[:, None, :]).any(-1)
+            logits = torch.where(hit, torch.full_like(logits, -np.inf),
+                                 logits)
+        vals, sel = torch.topk(logits, min(k, fetch), dim=1)
+        vals, idxs = _to_host(vals, torch.gather(cand, 1, sel))
+        return _sigmoid(vals), idxs
+
+    @torch.no_grad()
+    def score_pairs(self, user_ids, item_ids,
+                    temporal: Optional[Dict[str, int]] = None) -> np.ndarray:
+        """Exact pair scores, the sequence term included."""
+        ids = self._ids(np.atleast_1d(user_ids))
+        items = self._ids(np.atleast_1d(item_ids))
+        logits = self._rescore(ids, items[:, None], temporal)
+        return torch.sigmoid(logits[:, 0]).cpu().numpy()
+
+
+def _to_host(vals: torch.Tensor, idxs: torch.Tensor):
+    """(values f32, ids int32) as NumPy arrays in one device-to-host copy:
+    the ids ride as f32 bit patterns."""
+    packed = torch.cat(
+        [vals.to(torch.float32),
+         idxs.to(torch.int32).contiguous().view(torch.float32)],
+        dim=1).cpu().numpy()
+    n = vals.shape[1]
+    return packed[:, :n], np.ascontiguousarray(packed[:, n:]).view(np.int32)
 
 
 def _filter_excluded(vals: np.ndarray, idxs: np.ndarray,

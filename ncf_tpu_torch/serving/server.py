@@ -2,13 +2,13 @@
 
 Loads a checkpoint (the npy manifest format both packages share), exposes
 user/product embeddings, pair predictions and full top-k retrieval backed
-by the exact decomposition scorer, and coalesces concurrent single-user
-requests into shared batched retrievals.  Runs on the card unless the
-caller passes ``device="cpu"``.
+by the exact decomposition scorer (``SequenceRescoreScorer`` for
+``use_sequence`` models, over ``user_history``), and coalesces concurrent
+single-user requests into shared batched retrievals.  Runs on the card
+unless the caller passes ``device="cpu"``.
 
 Not ported yet: models other than ``advanced_ncf`` (the reference's
-``BruteForceScorer``) and ``use_sequence`` models
-(``SequenceRescoreScorer``).
+``BruteForceScorer``).
 """
 
 from __future__ import annotations
@@ -26,7 +26,8 @@ import torch
 
 from ncf_tpu_torch.convert import params_to_device
 from ncf_tpu_torch.models import get_model
-from ncf_tpu_torch.serving.scorer import AdvancedNCFScorer
+from ncf_tpu_torch.serving.scorer import (AdvancedNCFScorer,
+                                          SequenceRescoreScorer)
 from ncf_tpu_torch.train import checkpoint as ckpt_lib
 from ncf_tpu_torch.utils.config import Config
 from ncf_tpu_torch.utils.device import DeviceLike, resolve_device
@@ -203,10 +204,6 @@ class ModelServer:
             raise NotImplementedError(
                 f"serving {cfg.model.name!r} (BruteForceScorer) is not "
                 "ported yet")
-        if cfg.model.use_sequence or user_history is not None:
-            raise NotImplementedError(
-                "use_sequence serving (SequenceRescoreScorer) is not "
-                "ported yet")
         self.cfg = cfg
         self.model = get_model(cfg.model.name)
         self.model_version = model_version or cfg.serving.model_version
@@ -215,6 +212,8 @@ class ModelServer:
                           if item_dept is not None else None)
         self.item_cat = (torch.as_tensor(item_cat, device=self.device)
                          if item_cat is not None else None)
+        self.user_history = (np.asarray(user_history, np.int32)
+                             if user_history is not None else None)
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(0)
             params = self.model.init(gen, cfg.model)
@@ -254,9 +253,19 @@ class ModelServer:
         params = params_to_device(params, self.device)
         with self._lock:
             self.params = params
-            self.scorer = AdvancedNCFScorer(
-                params, self.cfg.model, self.item_dept, self.item_cat,
-                retrieval=self.cfg.serving.retrieval)
+            # the sequence path makes the eval MLP logit user-dependent:
+            # such models serve through retrieve-then-rescore
+            if self.cfg.model.use_sequence:
+                self.scorer = SequenceRescoreScorer(
+                    params, self.cfg.model, self.item_dept, self.item_cat,
+                    user_history=self.user_history,
+                    candidates=getattr(self.cfg.serving,
+                                       "seq_rescore_candidates", 54),
+                    retrieval=self.cfg.serving.retrieval)
+            else:
+                self.scorer = AdvancedNCFScorer(
+                    params, self.cfg.model, self.item_dept, self.item_cat,
+                    retrieval=self.cfg.serving.retrieval)
 
     def reload(self, ckpt_dir: str) -> None:
         """Hot-swap params from a checkpoint directory."""

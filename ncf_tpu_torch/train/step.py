@@ -5,7 +5,8 @@ Port of the dense half of ``ncf_tpu/train/step.py``: ``bce_loss``,
 ``make_multi_train_step`` and ``make_eval_step``, with the reference's
 call contract.  A step samples the negatives on the device (kernel B1),
 runs ``apply`` in training mode (the table gradients go through the
-scatter kernel B2, the temporal sum through B3), clips, decays and takes
+scatter kernel B2, the temporal sum through B3, and under the default
+``fused_tower: auto`` a bf16 tower on the card through B4f/B4b), clips, decays and takes
 the Adam step (``train/optim.py``), and returns the batch's loss and
 accuracy stats as device scalars.
 
@@ -13,7 +14,10 @@ Where the reference passes a JAX key and splits it, a step here takes a
 ``torch.Generator`` on the step's device and draws from it in order: the
 negatives, then the dropout masks.  ``negatives`` (int ``[B, NEG]``)
 replaces the draw, so a test can hand the port the reference's own
-negatives.  PyTorch runs eagerly, so there is no jit or donation: the
+negatives.  Sequence models (``use_sequence``) take each example's
+history from the batch (``"history"``, the causal per-example prefixes)
+or else from the ``user_history`` table with the positive masked out,
+as the reference does (``step.py:92-107``).  PyTorch runs eagerly, so there is no jit or donation: the
 params and the Adam moments are updated in place and returned.
 
 The sparse-table builders (``step.py:199-458``) belong to the big-vocab
@@ -59,11 +63,12 @@ def make_loss(name: str):
     raise ValueError(f"unknown loss {name!r}; use 'bce' or 'bpr'")
 
 
-def _consts(dev, neg_cdf, item_dept, item_cat) -> Dict[str, torch.Tensor]:
+def _consts(dev, neg_cdf, item_dept, item_cat,
+            user_history=None) -> Dict[str, torch.Tensor]:
     """The step's read-only device tensors."""
     out = {}
     for name, v in (("neg_cdf", neg_cdf), ("item_dept", item_dept),
-                    ("item_cat", item_cat)):
+                    ("item_cat", item_cat), ("user_history", user_history)):
         if v is not None:
             t = v if isinstance(v, torch.Tensor) else torch.from_numpy(
                 np.array(v))
@@ -72,8 +77,6 @@ def _consts(dev, neg_cdf, item_dept, item_cat) -> Dict[str, torch.Tensor]:
 
 
 def _batch_to(batch: Dict[str, Any], dev) -> Dict[str, torch.Tensor]:
-    if "history" in batch:
-        raise NotImplementedError("the sequence path is not ported yet")
     return {k: torch.as_tensor(v).to(dev, non_blocking=True)
             for k, v in batch.items()}
 
@@ -89,8 +92,6 @@ def _make_loss_fn(model, cfg: Config, training: bool = True):
     negatives and runs ``apply`` without dropout, as the reference's
     ``make_eval_step`` does."""
     mcfg = cfg.model
-    if mcfg.use_sequence:
-        raise NotImplementedError("the sequence path is not ported yet")
     S = 1 + mcfg.negative_samples
     loss_impl = make_loss(cfg.train.loss)
     joint = mcfg.candidate_mode == "joint"
@@ -107,10 +108,22 @@ def _make_loss_fn(model, cfg: Config, training: bool = True):
             negs = torch.as_tensor(negatives).to(pos.device)
         items = torch.cat([pos[:, None], negs.to(pos.dtype)], dim=1)
         temporal = {k: batch[k] for k in _TEMPORAL if k in batch} or None
+        history = None
+        if training and "history" in batch:
+            # causal per-example prefixes: the positive is never in its
+            # own prefix by construction
+            history = batch["history"]
+        elif "user_history" in consts:
+            # the static per-user table, each positive masked out of its
+            # own context
+            history = consts["user_history"][batch["user_ids"].long()]
+            history = torch.where(history == pos[:, None].to(history.dtype),
+                                  torch.full_like(history, -1), history)
         logits = model.apply(
             params, mcfg, batch["user_ids"], items, temporal,
             consts.get("item_dept"), consts.get("item_cat"),
-            candidate_attention=joint, deterministic=not training, rng=gen)
+            candidate_attention=joint, deterministic=not training, rng=gen,
+            history=history)
         targets = _targets(pos.shape[0], S, pos.device)
         return loss_impl(logits, targets), logits, targets
 
@@ -139,19 +152,21 @@ def make_train_step(
     neg_cdf=None,                  # [num_items] sampling CDF
     item_dept=None,
     item_cat=None,
+    user_history=None,             # int [U, H] padded with -1
     device: DeviceLike = None,
 ) -> Callable:
     """Returns ``train_step(params, opt_state, gen, batch, negatives=None)
     -> (params, opt_state, gen, metrics)``.
 
     ``batch``: {user_ids [B], item_ids [B] (positives), hour, day, month,
-    day_of_year}, NumPy arrays or tensors; they move to the step's device
+    day_of_year, and for sequence models optionally history [B, H]},
+    NumPy arrays or tensors; they move to the step's device
     (``cuda`` unless ``device`` says otherwise).  ``gen`` is a
     ``torch.Generator`` on that device.  ``metrics``: loss, accuracy,
     pos_accuracy and neg_accuracy as device scalars."""
     dev = resolve_device(device)
     loss_fn = _make_loss_fn(model, cfg)
-    consts = _consts(dev, neg_cdf, item_dept, item_cat)
+    consts = _consts(dev, neg_cdf, item_dept, item_cat, user_history)
 
     def train_step(params, opt_state, gen, batch, negatives=None):
         batch = _batch_to(batch, dev)
@@ -172,6 +187,7 @@ def make_multi_train_step(
     neg_cdf=None,
     item_dept=None,
     item_cat=None,
+    user_history=None,
     device: DeviceLike = None,
 ) -> Callable:
     """K steps per call: ``multi_train_step(params, opt_state, gen,
@@ -179,7 +195,7 @@ def make_multi_train_step(
     ``[K, B]`` (and ``negatives``, if given, ``[K, B, NEG]``).  Returns
     the mean metrics over the K steps."""
     step = make_train_step(model, cfg, optimizer, neg_cdf, item_dept,
-                           item_cat, device)
+                           item_cat, user_history, device)
 
     def multi_train_step(params, opt_state, gen, batches, negatives=None):
         K = len(next(iter(batches.values())))
@@ -202,14 +218,16 @@ def make_eval_step(
     neg_cdf=None,
     item_dept=None,
     item_cat=None,
+    user_history=None,
     device: DeviceLike = None,
 ) -> Callable:
     """Validation loss and accuracy stats on held-out interactions with
     freshly sampled (iid) negatives: ``eval_step(params, gen, batch,
-    negatives=None) -> (gen, metrics)``."""
+    negatives=None) -> (gen, metrics)``.  Sequence models take history
+    from ``user_history`` only, as the reference's eval step does."""
     dev = resolve_device(device)
     loss_fn = _make_loss_fn(model, cfg, training=False)
-    consts = _consts(dev, neg_cdf, item_dept, item_cat)
+    consts = _consts(dev, neg_cdf, item_dept, item_cat, user_history)
 
     @torch.no_grad()
     def eval_step(params, gen, batch, negatives=None):

@@ -33,7 +33,7 @@ def test_every_module_is_listed():
                  "ncf_tpu_torch.data.synthetic",
                  "ncf_tpu_torch.data.pipeline", "ncf_tpu_torch.data.sampler",
                  "ncf_tpu_torch.evals.metrics", "ncf_tpu_torch.train.optim",
-                 "ncf_tpu_torch.train.step"):
+                 "ncf_tpu_torch.train.step", "ncf_tpu_torch.ops.tower"):
         assert name in mods
 
 
@@ -89,7 +89,8 @@ def test_the_kernel_loader_builds_nothing_on_import():
 
     assert _kernels._libs == {}
     assert set(_kernels.SOURCES) == {"topk_streaming", "tree_sampler",
-                                     "scatter_add", "temporal_sum"}
+                                     "scatter_add", "temporal_sum",
+                                     "fused_tower"}
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     for name in _kernels.SOURCES:
         assert os.path.exists(os.path.join(

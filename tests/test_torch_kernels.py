@@ -14,7 +14,16 @@ Tolerances:
 - tree sampler (B1) and temporal sum (B3): equal, bit for bit (the same
   comparisons, the same order of f32 additions);
 - scatter-add (B2): within 1e-6 of the per-element magnitude sum
-  ``sum |g|`` (f32 atomics add in an order that changes from run to run).
+  ``sum |g|`` (f32 atomics add in an order that changes from run to run);
+- fused tower (B4f, B4b): identical dropout zeros; outputs within 1e-4
+  (relative, plus 1e-4) for at least 95% of the elements and within 5e-2
+  of the largest magnitude for all: f32 sums run in another order, and
+  where two of them straddle a bf16 rounding boundary between layers,
+  that row's later values move by up to ~1e-2 (rows of 512 meet such a
+  flip in a few percent of cases).  The backwards are held on the rows
+  whose outputs agree to 1e-5 (at least 90%; dy is zero on the others):
+  each parameter gradient within 1e-4 of its largest magnitude, dx
+  within one bf16 ulp plus 1e-4 of its largest magnitude.
 
 The tests at the end, which check the ctypes bindings against the C
 prototypes, run everywhere.
@@ -228,6 +237,91 @@ def test_cuda_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
             [torch.zeros((3, 8), device=cuda, dtype=torch.float64)])
 
 
+def _tower_case(shape, hidden, dev, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    layers, cur = [], shape[-1]
+    for h in hidden:
+        bound = cur ** -0.5
+        layers.append({
+            "dense": {"w": (torch.rand((cur, h), generator=gen, device=dev)
+                            * 2 - 1) * bound,
+                      "b": (torch.rand(h, generator=gen, device=dev) * 2 - 1)
+                      * bound},
+            "norm": {"scale": 1 + 0.1 * torch.randn(h, generator=gen,
+                                                    device=dev),
+                     "bias": 0.1 * torch.randn(h, generator=gen, device=dev)}})
+        cur = h
+    x = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    return layers, x
+
+
+def _tower_fwd(fn, layers, x, rate, seed):
+    """``fn`` on copies of the leaves: (out, x copy, leaves in packing
+    order), with the generator seeded ``seed``."""
+    tracked = [{k: {n: t.detach().clone().requires_grad_(True)
+                    for n, t in layer[k].items()} for k in ("dense", "norm")}
+               for layer in layers]
+    leaves = [layer[a][b] for layer in tracked
+              for a, b in (("dense", "w"), ("dense", "b"), ("norm", "scale"),
+                           ("norm", "bias"))]
+    xt = x.detach().clone().requires_grad_(True)
+    gen = torch.Generator(device=x.device).manual_seed(seed)
+    return fn(tracked, xt, rate, gen, rate == 0.0), xt, leaves
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", (0.0, 0.2))
+@pytest.mark.parametrize("shape,hidden", [
+    ((16384, 96), [256, 128, 64]), ((4096, 160), [256, 128, 64]),
+    ((1, 96), [256, 128, 64]), ((1025, 96), [256, 128, 64]),
+    ((40, 5, 96), [256, 128, 64]), ((333, 96), [64]),
+    ((257, 512), [512, 512, 64]), ((300, 37), [45, 3])])
+def test_fused_tower_kernels_match_plain_version(cuda, shape, hidden, rate):
+    from ncf_tpu_torch.ops import tower
+
+    layers, x = _tower_case(shape, hidden, cuda, len(hidden) + shape[0])
+    f0 = tower.fused_tower.fwd_launches.value
+    b0 = tower.fused_tower.bwd_launches.value
+    ko, kx, kl = _tower_fwd(tower.fused_tower, layers, x, rate, 3)
+    ro, rx, rl = _tower_fwd(tower.fused_tower_ref, layers, x, rate, 3)
+    assert tower.fused_tower.fwd_launches.value == f0 + 1
+    assert ko.shape == ro.shape == shape[:-1] + (hidden[-1],)
+    assert torch.equal(ko == 0, ro == 0)              # the same masks
+    if rate:
+        assert abs(float((ro == 0).float().mean()) - rate) < 0.05
+    err = (ko - ro).abs().detach()
+    scale = 1 + ro.abs().detach()
+    assert float((err <= 1e-4 * scale).float().mean()) >= 0.95
+    assert float(err.max()) <= 5e-2 * float(ro.detach().abs().max())
+    # the backwards on the rows whose forwards agree to f32 rounding (a
+    # bf16 flip between layers moves the rest of its row): tight there
+    same = (err <= 1e-5 * scale).reshape(-1, err.shape[-1]).all(-1)
+    assert float(same.float().mean()) >= 0.9
+    dy = torch.randn(ko.shape, device=cuda,
+                     generator=torch.Generator(device=cuda).manual_seed(5))
+    dy = dy * same.reshape(ko.shape[:-1] + (1,))
+    ko.backward(dy)
+    ro.backward(dy)
+    assert tower.fused_tower.bwd_launches.value == b0 + 1
+    torch.cuda.synchronize()
+    got, want = kx.grad.float(), rx.grad.float()
+    assert bool((got - want).abs().le(2.0 ** -7 * want.abs() + 1e-4
+                                      * float(want.abs().max())).all())
+    for k, r in zip(kl, rl):
+        assert float((k.grad - r.grad).abs().max()) <= \
+            1e-4 * float(r.grad.abs().max()) + 1e-6
+
+
+@pytest.mark.cuda
+def test_fused_tower_kernels_refuse_what_they_do_not_take(cuda):
+    from ncf_tpu_torch.ops import tower
+
+    for hidden in ([16] * 17, [600]):
+        layers, x = _tower_case((8, 16), hidden, cuda, 0)
+        with pytest.raises(ValueError):
+            tower.fused_tower(layers, x)
+
+
 def test_streaming_raises_off_cpu_and_cuda():
     q = torch.zeros((2, 16), device="meta")
     t = torch.zeros((500, 16), device="meta")
@@ -253,17 +347,24 @@ def _prototypes():
             for a in args.split(","):
                 a = a.strip()
                 codes += ("p" if "*" in a else "l" if "long long" in a
-                          else "i")
+                          else "f" if a.startswith("float") else "i")
             out[(name, fn)] = codes
     return out
 
 
 from ncf_tpu_torch.ops import _kernels, sampler, scatter, temporal_sum  # noqa: E402,E501
+from ncf_tpu_torch.ops import tower  # noqa: E402
 
 
 @pytest.mark.parametrize("mod", (topk, sampler, scatter, temporal_sum))
 def test_bindings_match_the_c_prototypes(mod):
     lib, fn, codes = mod.C_ENTRY
+    assert _prototypes()[(lib, fn)] == codes
+
+
+@pytest.mark.parametrize("entry", (tower.C_FWD, tower.C_BWD))
+def test_tower_bindings_match_the_c_prototypes(entry):
+    lib, fn, codes = entry
     assert _prototypes()[(lib, fn)] == codes
 
 
@@ -277,7 +378,8 @@ def test_wrappers_pass_what_the_bindings_declare(monkeypatch):
     def record(lib, fn, codes, *args):
         assert len(args) == len(codes), fn
         for c, a in zip(codes, args):
-            assert (a is None or isinstance(a, int)), (fn, c, a)
+            assert (a is None or isinstance(a, (int, float))), (fn, c, a)
+            assert isinstance(a, float) == (c == "f"), (fn, c, a)
             if c == "i":
                 assert isinstance(a, int) and -2**31 <= a < 2**31, (fn, a)
         calls.append(fn)
@@ -297,5 +399,14 @@ def test_wrappers_pass_what_the_bindings_declare(monkeypatch):
                                                                365)])
     topk._streaming_cuda(torch.zeros(3, 16), torch.zeros(500, 16), None,
                          500, 10, 128, 2, 256)
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda d: type("P", (), {"multi_processor_count": 4}))
+    flat = [torch.zeros(8, 16), torch.zeros(16), torch.ones(16),
+            torch.zeros(16)]
+    x2 = torch.zeros(5, 8, dtype=torch.bfloat16)
+    seed = torch.zeros(1, dtype=torch.int32)
+    tower._fwd_cuda(x2, seed, flat, 0.2)
+    tower._bwd_cuda(x2, torch.zeros(5, 16), seed, flat, 0.0)
     assert calls == ["ncf_tree_sample", "ncf_scatter_add",
-                     "ncf_temporal_sum", "ncf_topk_streaming"]
+                     "ncf_temporal_sum", "ncf_topk_streaming",
+                     "ncf_tower_fwd", "ncf_tower_bwd"]

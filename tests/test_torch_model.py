@@ -142,8 +142,12 @@ def test_init_matches_the_pytree(demo):
     assert jshapes == tshapes
     meta = tmodel.init(gen, ModelConfig(), device="meta")
     assert meta["user_emb"].device.type == "meta"
-    with pytest.raises(NotImplementedError):
-        tmodel.init(gen, ModelConfig(use_sequence=True))
+    # the sequence block is ported now: its pytree matches the reference's
+    seq = tmodel.init(gen, ModelConfig(use_sequence=True), device="meta")
+    jseq = jax.eval_shape(lambda k: jmodel.init(
+        k, JModelConfig(use_sequence=True)), jax.random.PRNGKey(0))
+    assert jax.tree.map(lambda a: tuple(a.shape), seq) == \
+        jax.tree.map(lambda a: tuple(a.shape), jseq)
     with pytest.raises(NotImplementedError):
         get_model("ncf")
 

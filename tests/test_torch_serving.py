@@ -163,10 +163,19 @@ def test_reload_and_presets(servers):
         cfg.serving.retrieval = preset
         with pytest.raises(NotImplementedError):
             ModelServer(cfg, params=ts.params, device="cpu")
+    # sequence models serve now, through the two-stage scorer
     cfg.serving.retrieval = "fast"
     cfg.model.use_sequence = True
-    with pytest.raises(NotImplementedError):
-        ModelServer(cfg, params=ts.params, device="cpu")
+    cfg.model.num_users, cfg.model.num_items = 40, 30
+    hist = np.full((40, 5), -1, np.int32)
+    hist[:, :3] = np.arange(120).reshape(40, 3) % 30
+    seq = ModelServer(cfg, device="cpu", user_history=hist)
+    try:
+        assert isinstance(seq.scorer, tscorer.SequenceRescoreScorer)
+        scores, ids, _ = seq.recommend(3, k=5)
+        assert ids.shape == (5,) and np.isfinite(scores).all()
+    finally:
+        seq.close()
 
 
 def test_cache_eviction_under_concurrent_contexts(servers):
