@@ -14,14 +14,32 @@ Phases (each asserts; any failure exits non-zero and prints no result):
    temporal sum (B3) at the training step's shapes and at edge shapes;
    the fused tower's forward (B4f) and backward (B4b) at the three tower
    shapes of the training steps, with dropout 0 and 0.2, and at edge
-   shapes (identical dropout zeros);
+   shapes (identical dropout zeros); the int8 streaming top-k (B6) bit for
+   bit at the serving catalog (4M items) and one that does not divide the
+   block, D 64 and 61, B 1, 64 and 1024, seg_top 1 and 2, k 1, 10 and 64,
+   with ties, padded-row floors and fill slots; the row gather (B7) bit
+   for bit (f32 and bf16, duplicate ids); the exact (B8) and segmented
+   (B9) top-k through ``compare_topk``;
 4. serving at full width: ``configs/advanced_ncf_bigvocab.yaml`` (12M users
    x 4M items, random weights from a seeded generator) through
    ``ModelServer`` with ``retrieval="exact"`` and ``"fast"``: direct,
    temporal, exclusion, hourly, batched and 64 concurrent coalesced
-   requests, held against the exact top-k computed on the card;
+   requests, held against the exact top-k computed on the card; then
+   ``retrieval="int8"`` and ``"int8-fast"`` (B6; a 60-item exclusion at
+   k=4 takes the bf16 tier's B5 branch under ``int8``): direct, temporal,
+   hourly, 64-user and exclusion requests, each equal to the same request
+   with the plain B6 on the card, ``int8`` scores equal to the exact ones,
+   recall@10 against the exact top-k reported; and ``AdvancedNCFScorer``
+   with ``impl="pallas"`` (B8) and ``"segmented"`` (B9) for 1 and 64 users,
+   each kernel then held through ``compare_topk`` against its plain
+   version on the queries, 4M-item table and bias it was served;
+   then NeuMF (``neumf_ml1m.yaml``, 6040 x 3706) and NCF
+   (``ncf_ml100k.yaml``, 943 x 1682) through ``ModelServer`` ->
+   ``BruteForceScorer`` under ``ops.embedding.set_impl("pallas")`` (B7),
+   equal to ``"xla"`` on the card and to the CPU within a tolerance;
 5. kernel, plain-version and library-call times (CUDA events) at the
-   serving shapes, beside the least time the card could take;
+   serving shapes, beside the least time the card could take (B5, B6, B8,
+   B9 at 4M items, B7 at NeuMF's scan);
 6. the demo checkpoint served on the card against the port's CPU answers;
 7. training at full width, config A: ``configs/advanced_ncf_ml1m.yaml``
    as shipped (6040 users x 3706 items, batch 16384, bf16 compute, dropout
@@ -83,6 +101,15 @@ KERNELS = {
                            "ncf_tpu/ops/pallas_scatter.py:185"),
     "fused_lookup_sum": ("ncf_tpu_torch/ops/csrc/temporal_sum.cu",
                          "ncf_tpu/ops/pallas_temporal.py:94"),
+    "topk_scores_streaming_int8": (
+        "ncf_tpu_torch/ops/csrc/topk_streaming_int8.cu",
+        "ncf_tpu/ops/topk.py:841"),
+    "gather_rows": ("ncf_tpu_torch/ops/csrc/gather.cu",
+                    "ncf_tpu/ops/pallas_embedding.py:144"),
+    "topk_scores_pallas": ("ncf_tpu_torch/ops/csrc/topk_exact.cu",
+                           "ncf_tpu/ops/topk.py:161"),
+    "topk_scores_segmented": ("ncf_tpu_torch/ops/csrc/topk_segmax.cu",
+                              "ncf_tpu/ops/topk.py:993"),
 }
 ML1M = os.path.join(ROOT, "configs", "advanced_ncf_ml1m.yaml")
 QUALITY = os.path.join(ROOT, "configs", "advanced_ncf_quality.yaml")
@@ -186,12 +213,12 @@ def device_split(fn, iters=20, tries=3):
     return None, None
 
 
-def exact_scores(q, table, bias, ids):
+def exact_scores(q, table, bias, ids, cast_q=True):
     """f64 scores and the magnitude sum sum_d |q_d v_d| of ``ids`` [B, k]
-    (q is cast to the table's type first, as the kernel does)."""
+    (q is cast to the table's type first where the kernel does so)."""
     import torch
 
-    qd = q.to(table.dtype).double()
+    qd = (q.to(table.dtype) if cast_q else q).double()
     rows = table[ids.long()].double()                       # [B, k, D]
     prod = qd[:, None, :] * rows
     s = prod.sum(-1)
@@ -200,7 +227,7 @@ def exact_scores(q, table, bias, ids):
     return s, prod.abs().sum(-1)
 
 
-def compare_topk(kv, ki, rv, ri, q, table, bias, what):
+def compare_topk(kv, ki, rv, ri, q, table, bias, what, cast_q=True):
     """Hold (kv, ki) against (rv, ri).  Tolerance per slot: 1e-5 * sum|q.v|
     + 1e-6 (f32 sums in another order).  Ids must be equal wherever the
     exact scores of the two rivals differ by more than that.  Returns
@@ -212,8 +239,8 @@ def compare_topk(kv, ki, rv, ri, q, table, bias, what):
     check(torch.equal(ki[~kvalid], ri[~rvalid]), f"{what}: empty-slot ids")
     if not bool(kvalid.any()):
         return 0.0, 0
-    sk, mk = exact_scores(q, table, bias, ki)
-    sr, mr = exact_scores(q, table, bias, ri)
+    sk, mk = exact_scores(q, table, bias, ki, cast_q)
+    sr, mr = exact_scores(q, table, bias, ri, cast_q)
     tol = 1e-5 * torch.maximum(mk, mr) + 1e-6
     v = kvalid
     check(bool(((kv.double() - sk).abs() <= tol)[v].all()),
@@ -324,7 +351,9 @@ def _check_served(scorer, uids, got_scores, got_ids, k, mod=None, bias=None,
     return hits, int(got_ids.size)
 
 
-def phase_serving(torch, topk, Config, ModelServer, advanced_ncf):
+def bigvocab(torch, Config, advanced_ncf):
+    """The bigvocab config at full width with seeded random weights:
+    (cfg, params, dept, cat, rng)."""
     import numpy as np
 
     cfg = Config.from_yaml(os.path.join(ROOT, "configs",
@@ -343,7 +372,14 @@ def phase_serving(torch, topk, Config, ModelServer, advanced_ncf):
     log(f"serving: init {U}x{I} params (mf/mlp {cfg.model.mf_dim}/"
         f"{cfg.model.mlp_dim}, tower {list(cfg.model.mlp_hidden_dims)}, "
         f"{cfg.model.compute_dtype}) in {time.perf_counter() - t0:.1f} s")
+    return cfg, params, dept, cat, rng
 
+
+def phase_serving(torch, topk, big, ModelServer):
+    import numpy as np
+
+    cfg, params, dept, cat, rng = big
+    U, I = cfg.model.num_users, cfg.model.num_items
     launches = topk.topk_scores_streaming.launches
     latency = {}
     temporal = {"hour": 18, "day": 4, "month": 11, "day_of_year": 320}
@@ -462,7 +498,6 @@ def phase_serving(torch, topk, Config, ModelServer, advanced_ncf):
         torch.cuda.empty_cache()
     main_launches = launches.value
     check(main_launches > 0, "the serving path never launched the kernel")
-    del params
     torch.cuda.empty_cache()
     return main_launches, latency
 
@@ -1433,6 +1468,575 @@ def phase_training_timing(torch):
     return rows, steps
 
 
+# ------------------------------------------------------- slice 4: kernels
+
+NEUMF = os.path.join(ROOT, "configs", "neumf_ml1m.yaml")
+NCF100K = os.path.join(ROOT, "configs", "ncf_ml100k.yaml")
+INT8_OPS_S = 1979e12     # dense int8 tensor cores
+NCF_SCORE_TOL = 5e-3     # probabilities: a bf16 flip in the tower moves a
+                         # logit by up to ~1e-2
+
+
+def _int8_cases(torch, topk, gen, dev):
+    """B6 at the serving catalog and at one that does not divide the
+    block, D 64 and 61, B 1 and 64 (and 1024), seg_top 1 and 2, k 1, 10
+    and 64; then ties, real items below the padded rows' floor and fewer
+    candidates than k.  Every case bit for bit."""
+    n = 0
+    for I, seg in ((4_000_000, 128), (1_000_003, 64)):
+        for D in (64, 61):
+            items = torch.randn((I, D), generator=gen, device=dev)
+            bias = torch.randn((I,), generator=gen, device=dev)
+            qs = torch.randn((1024, D), generator=gen, device=dev)
+            prep = topk.prepare_items_int8(items, bias, qs.abs().amax(0)[None],
+                                           seg_width=seg)
+            del items, bias
+            cases = [(B, st, k) for B in (1, 64) for st in (1, 2)
+                     for k in (1, 10, 64)]
+            if D == 64:
+                cases.append((1024, 1, 10) if seg == 128 else (1024, 2, 64))
+            for B, st, k in cases:
+                q = qs[:B]
+                kv, ki = topk.topk_scores_streaming_int8(q, prep, k,
+                                                         seg_top=st)
+                torch.cuda.synchronize()
+                rv, ri = topk.topk_scores_streaming_int8_ref(q, prep, k,
+                                                             seg_top=st)
+                check(torch.equal(ki, ri) and torch.equal(kv, rv),
+                      f"B6 I={I} D={D} B={B} seg={seg}/{st} k={k}: kernel "
+                      "!= plain version")
+                n += 1
+            del prep, qs
+            torch.cuda.empty_cache()
+    items = torch.randint(-1, 2, (20_000, 8), generator=gen,
+                          device=dev).float()
+    q = torch.randint(-1, 2, (9, 8), generator=gen, device=dev).float()
+    low = torch.full((300, 8), -1.0, device=dev)
+    low[:, 0] += torch.linspace(0, 0.5, 300, device=dev)
+    for it, b, qq, block, seg, k in (
+            (items, torch.ones(20_000, device=dev), q, 512, 32, 64),
+            (low, torch.full((300,), -1e9, device=dev),
+             torch.ones((3, 8), device=dev), 256, 64, 10),
+            (items[:200], None, q, 64, 64, 10)):
+        prep = topk.prepare_items_int8(it, b, qq, block_items=block,
+                                       seg_width=seg)
+        for st in (1, 2):
+            kv, ki = topk.topk_scores_streaming_int8(qq, prep, k, seg_top=st)
+            torch.cuda.synchronize()
+            rv, ri = topk.topk_scores_streaming_int8_ref(qq, prep, k,
+                                                         seg_top=st)
+            check(torch.equal(ki, ri) and torch.equal(kv, rv),
+                  f"B6 ties/floor/fill I={it.shape[0]} seg={seg}/{st}: "
+                  "kernel != plain version")
+            n += 1
+    return n
+
+
+def phase_slice4_kernels_vs_plain(torch, topk):
+    """B6 and B7 bit for bit against their plain versions; B8 and B9
+    through ``compare_topk`` with the queries in f32 (both kernels keep
+    them so), and bit for bit on small-integer data (exact sums).
+    Returns {kernel: max |kernel - plain|}."""
+    from ncf_tpu_torch.ops import gather
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4321)
+    errs = dict.fromkeys(("topk_scores_streaming_int8", "gather_rows",
+                          "topk_scores_pallas", "topk_scores_segmented"), 0.0)
+    t0 = time.perf_counter()
+    n6 = _int8_cases(torch, topk, gen, dev)
+    log(f"kernel_vs_plain: topk_scores_streaming_int8 {n6} cases equal bit "
+        f"for bit ({time.perf_counter() - t0:.1f} s)")
+
+    n7 = 0
+    for rows, d, dtype in ((3706, 64, torch.float32), (6040, 64, torch.float32),
+                           (3706, 64, torch.bfloat16),
+                           (1682, 32, torch.bfloat16),
+                           (1000, 34, torch.bfloat16), (500, 3, torch.float32)):
+        table = torch.randn((rows, d), generator=gen, device=dev).to(dtype)
+        ids = torch.randint(0, rows, (64, 3706), generator=gen, device=dev)
+        for i in (ids, ids.to(torch.int32), ids[:, :1]):
+            got = gather.gather_rows(table, i)
+            torch.cuda.synchronize()
+            check(torch.equal(got, gather.gather_rows_ref(table, i)),
+                  f"B7 [{rows}, {d}] {dtype} ids {tuple(i.shape)} "
+                  f"{i.dtype}: kernel != plain version")
+            n7 += 1
+    log(f"kernel_vs_plain: gather_rows {n7} cases equal bit for bit")
+
+    t0 = time.perf_counter()
+    n8 = n9 = swaps = 0
+    for I in (100_003, 1_000_000):
+        t32 = torch.randn((I, 64), generator=gen, device=dev)
+        b = torch.randn((I,), generator=gen, device=dev)
+        for B in (1, 64):
+            q = torch.randn((B, 64), generator=gen, device=dev)
+            for table in (t32, t32.to(torch.bfloat16)):
+                for bias in (b, None):
+                    for k in (10, 64, 256):
+                        kv, ki = topk.topk_scores_pallas(q, table, k, bias)
+                        torch.cuda.synchronize()
+                        rv, ri = topk.topk_scores_pallas_ref(q, table, k,
+                                                             bias)
+                        e, s = compare_topk(
+                            kv, ki, rv, ri, q, table, bias,
+                            f"B8 I={I} B={B} {table.dtype} bias="
+                            f"{bias is not None} k={k}", cast_q=False)
+                        errs["topk_scores_pallas"] = max(
+                            errs["topk_scores_pallas"], e)
+                        swaps, n8 = swaps + s, n8 + 1
+            for seg in (128, 32):
+                for bias in (b, None):
+                    kv, ki = topk.topk_scores_segmented(q, t32, 10, bias,
+                                                        seg_width=seg)
+                    torch.cuda.synchronize()
+                    rv, ri = topk.topk_scores_segmented_ref(q, t32, 10, bias,
+                                                            seg_width=seg)
+                    e, s = compare_topk(
+                        kv, ki, rv, ri, q, t32, bias,
+                        f"B9 I={I} B={B} seg={seg} bias={bias is not None}",
+                        cast_q=False)
+                    errs["topk_scores_segmented"] = max(
+                        errs["topk_scores_segmented"], e)
+                    swaps, n9 = swaps + s, n9 + 1
+        del t32, b
+        torch.cuda.empty_cache()
+    # small integers: exact sums, so values, ids and keys are equal; items
+    # with a NEG_INF bias never surface, empty slots repeat the fill id
+    t = torch.randint(-1, 2, (9_000, 16), generator=gen, device=dev).float()
+    q = torch.randint(-1, 2, (17, 16), generator=gen, device=dev).float()
+    b = torch.randint(0, 2, (9_000,), generator=gen, device=dev).float()
+    b[:8_990] = NEG_INF
+    for bias, k in ((None, 200), (b, 30)):
+        for block in (2048, 512):
+            got = topk.topk_scores_pallas(q, t, k, bias, block_items=block)
+            want = topk.topk_scores_pallas_ref(q, t, k, bias,
+                                               block_items=block)
+            check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+                  f"B8 ties/empty k={k} block={block}: kernel != plain")
+            n8 += 1
+    for seg in (128, 64, 32):
+        keys = topk._segmax_cuda(q, t, None, 2048, seg)
+        torch.cuda.synchronize()
+        check(torch.equal(keys, topk.segmax_keys_ref(q, t, None, 2048, seg)),
+              f"B9 integer keys seg={seg}: kernel != plain version")
+        n9 += 1
+    log(f"kernel_vs_plain: topk_scores_pallas {n8} cases, "
+        f"topk_scores_segmented {n9} cases ok, max_abs_err "
+        f"{json.dumps(errs)}, near-tie id swaps {swaps} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    return errs
+
+
+# ------------------------------------------------------- slice 4: serving
+
+def _served_scores(scorer, uids, s, i, k, mod, bias, exclude, rescored,
+                   what):
+    """Served int8-tier or exact-kernel answers: (hits of the exact
+    top-k, slots, max |score - exact probability of the served id|).
+    Rows must be sorted and free of repeats; rescored scores must be
+    their ids' exact probabilities (1e-5)."""
+    import numpy as np
+    import torch
+
+    hits, total = _check_served(scorer, uids, s, i, k, mod=mod, bias=bias,
+                                exclude=exclude, exact=False, what=what)
+    s = np.asarray(s, np.float64).reshape(len(uids), -1)
+    i = np.asarray(i).reshape(len(uids), -1)
+    check(all(len(set(r)) == len(r) for r in i.tolist()),
+          f"{what}: an id repeats")
+    check(bool((np.diff(s, axis=1) <= 1e-7).all()), f"{what}: not sorted")
+    q = scorer.user_queries[torch.as_tensor(np.asarray(uids),
+                                            device=scorer.device).long()]
+    if mod is not None:
+        q = q * mod[None, :]
+    sc, _ = exact_scores(q, scorer.item_vecs, bias,
+                         torch.as_tensor(i, device=scorer.device))
+    want = (1.0 / (1.0 + torch.exp(-sc))).cpu().numpy()
+    err = float(np.abs(s - want).max())
+    if rescored:
+        check(err <= 1e-5, f"{what}: scores are not the exact ones ({err!r})")
+    return hits, total, err
+
+
+def phase_serving_int8(torch, topk, big, ModelServer):
+    """Bigvocab served under ``int8`` and ``int8-fast`` (B6; the 60-item
+    exclusion at k=4 takes the bf16 tier's B5 branch under ``int8``),
+    each request held against the same request with the plain B6 on the
+    card (equal ids and scores) and against the exact top-k (recall, and
+    exact scores under ``int8``); then ``AdvancedNCFScorer`` with
+    ``impl="pallas"`` (B8, exact) and ``"segmented"`` (B9), each kernel
+    then held against its plain version on the inputs it was served.
+    Returns (launches by kernel, summary, {kernel: max |kernel - plain|})."""
+    import numpy as np
+
+    from ncf_tpu_torch.serving import AdvancedNCFScorer
+
+    cfg, params, dept, cat, rng = big
+    U, I = cfg.model.num_users, cfg.model.num_items
+    b5 = topk.topk_scores_streaming.launches
+    b6 = topk.topk_scores_streaming_int8.launches
+    b8 = topk.topk_scores_pallas.launches
+    b9 = topk.topk_scores_segmented.launches
+    temporal = {"hour": 18, "day": 4, "month": 11, "day_of_year": 320}
+    users = rng.choice(U, size=64, replace=False).astype(np.int32)
+    summary = {}
+    b5_0 = b5.value
+    for c in (b6, b8, b9):
+        c.reset()
+    for preset in ("int8", "int8-fast"):
+        cfg.serving.retrieval = preset
+        t0 = time.perf_counter()
+        server = ModelServer(cfg, params=params, item_dept=dept,
+                             item_cat=cat, device="cuda")
+        scorer = server.scorer
+        try:
+            bias0 = scorer.item_bias(None)
+            bias_t = scorer.item_bias(temporal)
+            mod, hbias = scorer._hour_mod(8), scorer._hourly_item_bias(8)
+            u = int(users[0])
+            seen = rng.choice(I, size=60, replace=False).astype(np.int32)
+            seen[:3] = server.recommend(u, k=3)[1]
+            torch.cuda.synchronize()
+            log(f"serving[{preset}]: server, biases and int8 table ready in "
+                f"{time.perf_counter() - t0:.1f} s")
+            requests = [
+                ("recommend", [u], 10, None, bias0, None,
+                 lambda: server.recommend(u, k=10)[:2]),
+                ("temporal", [u], 10, None, bias_t, None,
+                 lambda: server.recommend(u, k=10, temporal=temporal)[:2]),
+                ("hourly", [u], 10, mod, hbias, None,
+                 lambda: server.recommend_hourly(u, hour=8, k=10)[:2]),
+                ("batch", users, 10, None, bias0, None,
+                 lambda: server.recommend_batch(users, k=10)[:2]),
+                ("batch temporal", users, 10, None, bias_t, None,
+                 lambda: server.recommend_batch(users, k=10,
+                                                temporal=temporal)[:2]),
+                ("exclusion", [u], 4, None, bias0, seen[None, :],
+                 lambda: server.recommend(u, k=4,
+                                          exclude_items=seen.tolist())[:2])]
+            hits = total = 0
+            worst = 0.0
+            for what, uids, k, m, b, excl, fn in requests:
+                n5, n6 = b5.value, b6.value
+                s, i = fn()
+                if what == "exclusion" and preset == "int8":
+                    check(b5.value > n5 and b6.value == n6,
+                          f"{preset} {what}: the B5 branch was not taken")
+                else:
+                    check(b6.value > n6, f"{preset} {what}: B6 not launched")
+                if excl is not None:
+                    check(not set(excl[0].tolist()) & set(i.tolist()),
+                          f"{preset}: an excluded item was served")
+                h, n, e = _served_scores(scorer, uids, s, i, k, m, b, excl,
+                                         preset == "int8",
+                                         f"{preset} {what}")
+                hits, total, worst = hits + h, total + n, max(worst, e)
+                real = topk.topk_scores_streaming_int8
+                topk.topk_scores_streaming_int8 = (
+                    topk.topk_scores_streaming_int8_ref)
+                try:
+                    ps, pi = fn()
+                finally:
+                    topk.topk_scores_streaming_int8 = real
+                check(np.array_equal(i, pi) and np.array_equal(s, ps),
+                      f"{preset} {what}: the kernel's answer differs from "
+                      "the plain B6's on the card")
+            recall = hits / total
+            # the share of item biases that saturate the int8 bias range
+            # (|bias| / q_scale > 32322): the tier's recall falls with it
+            prep = scorer._prepared((), bias0)
+            clipped = float(((bias0 / prep.q_scale).abs()
+                             > topk._BIAS_INT_LIM).float().mean())
+            one = [server.recommend(int(users[j % 64]), k=10)[2]
+                   for j in range(40)]
+            many = [server.recommend_batch(users, k=10)[2] for _ in range(20)]
+            summary[preset] = {
+                "recall_at_10_vs_exact": recall, "slots": total,
+                "q_scale": float(prep.q_scale), "bias_clipped_share": clipped,
+                "max_abs_score_vs_exact": worst,
+                "p50_ms_1_user": float(np.median(one)),
+                "p50_ms_64_users": float(np.median(many))}
+            log(f"serving[{preset}]: {len(requests)} request kinds equal the "
+                f"plain B6 path; recall@10 vs exact {recall!r} over {total} "
+                f"slots ({clipped!r} of the biases clip), max |score - "
+                f"exact| {worst!r}; p50 "
+                f"{summary[preset]['p50_ms_1_user']!r} ms (1 user), "
+                f"{summary[preset]['p50_ms_64_users']!r} ms (64 users)")
+        finally:
+            server.close()
+        del server, scorer
+        torch.cuda.empty_cache()
+    cfg.serving.retrieval = "exact"
+
+    dept_t = torch.as_tensor(dept, device="cuda")
+    cat_t = torch.as_tensor(cat, device="cuda")
+    held = {}
+    for impl, counter in (("pallas", b8), ("segmented", b9)):
+        sc = AdvancedNCFScorer(params, cfg.model, dept_t, cat_t, impl=impl)
+        bias0 = sc.item_bias(None)
+        n0 = counter.value
+        s1, i1 = sc.topk_for_users(users[:1], k=10)
+        s64, i64 = sc.topk_for_users(users, k=10)
+        check(counter.value - n0 == 2, f"impl={impl}: kernel launches")
+        exact = impl == "pallas"
+        h, n = _check_served(sc, users, s64, i64, 10, bias=bias0,
+                             exact=exact, what=f"impl={impl}")
+        h1, n1 = _check_served(sc, users[:1], s1, i1, 10, bias=bias0,
+                               exact=exact, what=f"impl={impl} 1 user")
+        _, _, err = _served_scores(sc, users, s64, i64, 10, None, bias0,
+                                   None, True, f"impl={impl}")
+        t = []
+        for j in range(10):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sc.topk_for_users(users[j:j + 1], k=10)
+            t.append((time.perf_counter() - t0) * 1e3)
+        tb = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            sc.topk_for_users(users, k=10)
+            tb.append((time.perf_counter() - t0) * 1e3)
+        summary[f"impl={impl}"] = {
+            "recall_at_10_vs_exact": (h + h1) / (n + n1),
+            "ids_user0": i1[0].tolist(), "max_abs_score_vs_exact": err,
+            "p50_ms_1_user": float(np.median(t)),
+            "p50_ms_64_users": float(np.median(tb))}
+        log(f"serving[impl={impl}]: 1 and 64 users, recall@10 vs exact "
+            f"{(h + h1) / (n + n1)!r}, ids of user 0 {i1[0].tolist()}, "
+            f"p50 {float(np.median(t))!r} ms (1 user), "
+            f"{float(np.median(tb))!r} ms (64 users)")
+        held[impl] = (sc.user_query(users), sc.item_vecs, bias0)
+        del sc
+        torch.cuda.empty_cache()
+    launches = {"topk_scores_streaming": b5.value - b5_0,
+                "topk_scores_streaming_int8": b6.value,
+                "topk_scores_pallas": b8.value,
+                "topk_scores_segmented": b9.value}
+    log(f"serving_int8: launches {json.dumps(launches)}")
+
+    # each kernel against its plain version on the queries, table and
+    # bias the served path gave it (4M items, 1 and 64 users, k=10); these
+    # launches come after the count above was read
+    refs = {"pallas": ("topk_scores_pallas", topk.topk_scores_pallas_ref),
+            "segmented": ("topk_scores_segmented",
+                          topk.topk_scores_segmented_ref)}
+    errs, swaps = {}, 0
+    for impl, (q, items, bias) in held.items():
+        name, ref = refs[impl]
+        errs[name] = 0.0
+        for qb in (q[:1], q):
+            kv, ki = topk.topk_scores(qb, items, 10, bias, impl=impl)
+            torch.cuda.synchronize()
+            rv, ri = ref(qb, items, 10, bias)
+            e, s = compare_topk(kv, ki, rv, ri, qb, items, bias,
+                                f"served impl={impl} B={qb.shape[0]} "
+                                f"I={items.shape[0]}", cast_q=False)
+            errs[name], swaps = max(errs[name], e), swaps + s
+    del held
+    torch.cuda.empty_cache()
+    log(f"serving_int8: kernel vs plain on the served inputs, max_abs_err "
+        f"{json.dumps(errs)}, near-tie id swaps {swaps}")
+    return launches, summary, errs
+
+
+def phase_serving_ncf(torch, ModelServer, Config):
+    """NeuMF (``neumf_ml1m.yaml``, 6040 x 3706) and NCF
+    (``ncf_ml100k.yaml``, 943 x 1682) as shipped (bf16 compute), seeded
+    random weights with the embedding tables at std 0.3 (0.01 leaves every
+    score ~0.5), served through ``ModelServer`` -> ``BruteForceScorer``:
+    on the card under ``set_impl("pallas")`` (every request launches B7),
+    equal bit for bit to the card under ``"xla"`` (no B7 launch), and to
+    the CPU within ``NCF_SCORE_TOL`` (ids equal wherever the CPU's scores
+    of the two rivals differ by more).  Returns (B7 launches, summary)."""
+    import numpy as np
+
+    from ncf_tpu_torch.convert import tree_map
+    from ncf_tpu_torch.models import get_model
+    from ncf_tpu_torch.ops import embedding, gather
+
+    b7 = gather.gather_rows.launches
+    b7.reset()
+    summary = {}
+    for path, (U, I) in ((NEUMF, (6040, 3706)), (NCF100K, (943, 1682))):
+        cfg = Config.from_yaml(path)
+        cfg.model.num_users, cfg.model.num_items = U, I
+        name = cfg.model.name
+        gen = torch.Generator(device="cuda").manual_seed(21)
+        params = get_model(name).init(gen, cfg.model)
+        for key in ("gmf_user", "gmf_item", "mlp_user", "mlp_item"):
+            params[key] *= 30.0
+        host = tree_map(lambda t: t.detach().to("cpu", copy=True), params)
+        rng = np.random.default_rng(7)
+        users = rng.choice(U, 64, replace=False)
+        u = int(users[0])
+        seen = rng.choice(I, 30, replace=False).tolist()
+        items = rng.choice(I, 20, replace=False)
+        calls = [("recommend", lambda s: s.recommend(u, k=10)[:2]),
+                 ("exclusion", lambda s: s.recommend(
+                     u, k=10, exclude_items=seen)[:2]),
+                 ("hourly", lambda s: s.recommend_hourly(u, hour=8,
+                                                         k=10)[:2]),
+                 ("batch", lambda s: s.recommend_batch(users, k=10)[:2]),
+                 ("predictions", lambda s: (s.get_predictions(u, items),
+                                            items))]
+        cpu = ModelServer(cfg, params=host, device="cpu")
+        results = {}
+        try:
+            for where, impl in (("pallas", "pallas"), ("xla", "xla")):
+                embedding.set_impl(impl)
+                server = ModelServer(cfg, params=params, device="cuda")
+                try:
+                    out = []
+                    for what, fn in calls:
+                        n0 = b7.value
+                        out.append(fn(server))
+                        check((b7.value > n0) == (impl == "pallas"),
+                              f"{name} {what} under {impl}: B7 launches")
+                    results[where] = out
+                    if impl == "pallas":
+                        one = [server.recommend(int(users[j % 64]), k=10)[2]
+                               for j in range(20)]
+                        many = [server.recommend_batch(users, k=10)[2]
+                                for _ in range(10)]
+                finally:
+                    server.close()
+            embedding.set_impl("xla")
+            results["cpu"] = [fn(cpu) for _, fn in calls]
+            worst, swaps = 0.0, 0
+            for (what, _), a, b, c in zip(calls, results["pallas"],
+                                          results["xla"], results["cpu"]):
+                check(all(np.array_equal(np.asarray(x), np.asarray(y))
+                          for x, y in zip(a, b)),
+                      f"{name} {what}: the B7 path differs from xla")
+                gs, gi = np.atleast_2d(a[0]), np.atleast_2d(a[1])
+                cs, ci = np.atleast_2d(c[0]), np.atleast_2d(c[1])
+                check(np.isfinite(gs[gs > -np.inf]).all()
+                      and gs.shape == cs.shape, f"{name} {what}: bad scores")
+                err = float(np.abs(gs - cs).max())
+                worst = max(worst, err)
+                check(err <= NCF_SCORE_TOL,
+                      f"{name} {what}: card vs CPU scores differ by {err!r}")
+                uids = users if what == "batch" else [u]
+                for r, j in zip(*np.nonzero(gi != ci)):
+                    pair = cpu.get_predictions(int(uids[r]),
+                                               [gi[r, j], ci[r, j]])
+                    check(abs(float(pair[0] - pair[1])) <= NCF_SCORE_TOL,
+                          f"{name} {what}: ids differ where the scores are "
+                          "not tied")
+                    swaps += 1
+        finally:
+            embedding.set_impl("xla")
+            cpu.close()
+        summary[name] = {"users": U, "items": I,
+                         "max_score_diff_vs_cpu": worst,
+                         "near_tie_id_swaps": swaps,
+                         "p50_ms_1_user": float(np.median(one)),
+                         "p50_ms_64_users": float(np.median(many))}
+        log(f"serving_ncf[{name}]: {U}x{I}, {len(calls)} request kinds equal "
+            f"under pallas and xla on the card, card vs CPU max |score "
+            f"diff| {worst!r} ({swaps} near-tie id swaps); p50 "
+            f"{summary[name]['p50_ms_1_user']!r} ms (1 user), "
+            f"{summary[name]['p50_ms_64_users']!r} ms (64 users)")
+        del params, host
+        torch.cuda.empty_cache()
+    log(f"serving_ncf: B7 launches {b7.value}")
+    return b7.value, summary
+
+
+def phase_timing_slice4(torch, topk):
+    """B6, B8 and B9 at the bigvocab serving shape (B=64, 4M items, D=64;
+    B6 also at B=1) and B7 at NeuMF's scan (3706 x 64 f32, 64 users x
+    3706 candidates): kernel (CUDA events and profiler device time), plain
+    version, library call and bound.  Returns rows keyed by kernel."""
+    import torch.nn.functional as F
+
+    from ncf_tpu_torch.ops import gather
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(77)
+    f32 = PEAK_FLOP_S["float32"]
+    rows = []
+    I, D = 4_000_000, 64
+    items = torch.randn((I, D), generator=gen, device=dev)
+    bias = torch.randn((I,), generator=gen, device=dev)
+    qs = torch.randn((64, D), generator=gen, device=dev)
+    prep = topk.prepare_items_int8(items, bias, qs.abs().amax(0)[None],
+                                   seg_width=128)
+    ipad, K = prep.table.shape
+    k = 16                                # k=10 plus the int8 over-fetch
+    for B in (64, 1):
+        q = qs[:B]
+        call = functools.partial(topk.topk_scores_streaming_int8, q, prep, k)
+        lib = None
+        if B > 16:                        # torch._int_mm takes > 16 rows
+            kp = -(-K // 8) * 8
+            q8 = F.pad(topk._quantize_queries(q, prep), (0, kp - K))
+            t8 = F.pad(prep.table, (0, kp - K))
+            try:
+                lib = cuda_ms(lambda: torch.topk(torch._int_mm(q8, t8.t()), k),
+                              10)
+            except RuntimeError as e:
+                log(f"timing: B6 library call refused ({e!r})")
+            del q8, t8
+        bound, by = _bound(ipad * K + B * K + B * k * 8, 2.0 * B * ipad * K,
+                           INT8_OPS_S)
+        rows.append({"kernel": "topk_scores_streaming_int8",
+                     "shape": f"B={B} I={I} D={D} seg 128/1 k={k}",
+                     "ms": cuda_ms(call, 20), **_device_fields(call),
+                     "plain_ms": cuda_ms(lambda: topk.topk_scores_streaming_int8_ref(
+                         q, prep, k), 3, warmup=1),
+                     "library_ms": lib, "bound_ms": bound, "bound_by": by})
+    del prep
+    torch.cuda.empty_cache()
+    q, k = qs, 10
+    nbytes = I * D * 4 + I * 4 + 64 * D * 4
+    bound, by = _bound(nbytes + 64 * k * 8, 2.0 * 64 * I * D, f32)
+    call = functools.partial(topk.topk_scores_pallas, q, items, k, bias)
+    rows.append({"kernel": "topk_scores_pallas",
+                 "shape": f"B=64 I={I} D={D} f32 k={k}",
+                 "ms": cuda_ms(call, 10), **_device_fields(call),
+                 "plain_ms": cuda_ms(lambda: topk.topk_scores_pallas_ref(
+                     q, items, k, bias), 3, warmup=1),
+                 "library_ms": cuda_ms(lambda: torch.topk(
+                     q @ items.T + bias, k), 5),
+                 "bound_ms": bound, "bound_by": by})
+    bound, by = _bound(nbytes + 64 * (I // 128) * 4, 2.0 * 64 * I * D, f32)
+    call = functools.partial(topk._segmax_cuda, q, items, bias, 2048, 128)
+    rows.append({"kernel": "topk_scores_segmented",
+                 "shape": f"B=64 I={I} D={D} f32 seg 128",
+                 "ms": cuda_ms(call, 10), **_device_fields(call),
+                 "plain_ms": cuda_ms(lambda: topk.segmax_keys_ref(
+                     q, items, bias, 2048, 128), 3, warmup=1),
+                 "library_ms": None,
+                 "with_topk_and_rescore_ms": cuda_ms(
+                     lambda: topk.topk_scores_segmented(q, items, k, bias), 10),
+                 "bound_ms": bound, "bound_by": by})
+    del items, bias, qs, q
+    torch.cuda.empty_cache()
+    table = torch.randn((3706, 64), generator=gen, device=dev)
+    ids = torch.randint(0, 3706, (64, 3706), generator=gen, device=dev,
+                        dtype=torch.int32)
+    n = ids.numel()
+    bound, by = _bound(n * 4 + n * 64 * 4 + table.numel() * 4, 0, f32)
+    call = functools.partial(gather.gather_rows, table, ids)
+    flat = ids.reshape(-1)
+    rows.append({"kernel": "gather_rows", "shape": f"[3706, 64] f32 x {n} ids",
+                 "ms": cuda_ms(call, 50), **_device_fields(call),
+                 "plain_ms": cuda_ms(lambda: gather.gather_rows_ref(table, ids),
+                                     50),
+                 "library_ms": cuda_ms(lambda: torch.index_select(table, 0,
+                                                                  flat), 50),
+                 "bound_ms": bound, "bound_by": by})
+    for r in rows:
+        log(f"timing: {r['kernel']} [{r['shape']}] kernel {r['ms']!r} ms "
+            f"(device {r['device_ms']!r} ms), plain {r['plain_ms']!r} ms, "
+            f"library {r['library_ms']!r} ms, bound {r['bound_ms']!r} ms "
+            f"({r['bound_by']})")
+    log("slice4_timing_json: " + json.dumps(rows))
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -1470,17 +2074,35 @@ def main() -> int:
     max_err = {"topk_scores_streaming": phase_kernel_vs_plain(torch, topk)}
     max_err.update(phase_training_kernels_vs_plain(torch))
     max_err.update(phase_tower_kernels_vs_plain(torch))
+    max_err.update(phase_slice4_kernels_vs_plain(torch, topk))
     log(f"phase kernel_vs_plain {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    main_launches, latency = phase_serving(torch, topk, Config, ModelServer,
-                                           advanced_ncf)
+    big = bigvocab(torch, Config, advanced_ncf)
+    main_launches, latency = phase_serving(torch, topk, big, ModelServer)
     log(f"phase serving {time.perf_counter() - t0:.1f} s, kernel launches "
         f"on the main path {main_launches}")
     log("latency_json: " + json.dumps(latency))
 
     t0 = time.perf_counter()
+    slice4_launches, int8_summary, served_err = phase_serving_int8(
+        torch, topk, big, ModelServer)
+    for name, e in served_err.items():
+        max_err[name] = max(max_err[name], e)
+    del big
+    torch.cuda.empty_cache()
+    log(f"phase serving_int8 {time.perf_counter() - t0:.1f} s")
+    log("serving_int8_json: " + json.dumps(int8_summary))
+
+    t0 = time.perf_counter()
+    b7_launches, ncf_summary = phase_serving_ncf(torch, ModelServer, Config)
+    slice4_launches["gather_rows"] = b7_launches
+    log(f"phase serving_ncf {time.perf_counter() - t0:.1f} s")
+    log("serving_ncf_json: " + json.dumps(ncf_summary))
+
+    t0 = time.perf_counter()
     rows = phase_timing(torch, topk)
+    slice4_rows = phase_timing_slice4(torch, topk)
     log(f"phase timing {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
@@ -1499,6 +2121,8 @@ def main() -> int:
     for k, v in seq_launches.items():
         launches[k] += v
     launches["topk_scores_streaming"] = main_launches
+    for k, v in slice4_launches.items():
+        launches[k] = launches.get(k, 0) + v
 
     for tower_mode in ("off", "on"):
         t0 = time.perf_counter()
@@ -1521,6 +2145,8 @@ def main() -> int:
     # stratified draw for B1, the item table for B2, the step for B3, the
     # joint tower of config A for B4f and B4b
     main_rows = {"topk_scores_streaming": rows[0]}
+    for r in slice4_rows:                 # the first row of each: B=64
+        main_rows.setdefault(r["kernel"], r)
     for r in train_rows:
         if (r["kernel"], r["shape"]) in (
                 ("tree_sample_negatives", "stratified"),

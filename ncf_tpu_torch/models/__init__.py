@@ -1,14 +1,18 @@
-"""Model registry: name -> (init, apply, score_candidates, ...).
-
-Only ``advanced_ncf`` is ported so far; NCF/NeuMF come with a later
-slice."""
+"""Model registry: name -> (init, apply, score_candidates, ...)."""
 
 from types import SimpleNamespace
 
-from ncf_tpu_torch.models import advanced_ncf
+from ncf_tpu_torch.models import advanced_ncf, ncf
 from ncf_tpu_torch.utils.config import ModelConfig
 
+_NCF = SimpleNamespace(
+    init=ncf.init, apply=ncf.apply, score_candidates=ncf.score_candidates,
+    get_user_embeddings=ncf.get_user_embeddings,
+    get_product_embeddings=ncf.get_product_embeddings)
+
 _REGISTRY = {
+    "ncf": _NCF,
+    "neumf": _NCF,
     "advanced_ncf": SimpleNamespace(
         init=advanced_ncf.init,
         apply=advanced_ncf.apply,
@@ -21,11 +25,9 @@ _REGISTRY = {
 
 
 def get_model(name: str):
-    if name in ("ncf", "neumf"):
-        raise NotImplementedError(f"model {name!r} is not ported yet")
     if name not in _REGISTRY:
         raise ValueError(f"unknown model {name!r}; available: {sorted(_REGISTRY)}")
     return _REGISTRY[name]
 
 
-__all__ = ["get_model", "ModelConfig", "advanced_ncf"]
+__all__ = ["get_model", "ModelConfig", "advanced_ncf", "ncf"]

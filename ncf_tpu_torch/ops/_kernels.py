@@ -4,8 +4,8 @@ Each ``csrc/*.cu`` source is compiled by ``nvcc`` for ``sm_90a`` into its
 own shared library with a plain C interface, bound with ``ctypes`` (no
 PyTorch headers, so a build takes seconds).  Libraries go to
 ``ncf_tpu_torch/ops/_build/`` (listed in ``.gitignore``) under a name that
-carries a hash of the source and flags, so an edited source rebuilds and
-an unchanged one is reused.  Nothing is built at import time: the first
+carries a hash of the source, the shared headers and the flags, so an
+edited source rebuilds and an unchanged one is reused.  Nothing is built at import time: the first
 call that needs a kernel builds it, and ``build_all`` builds every source
 at once, one ``nvcc`` per source, all started together.
 """
@@ -26,7 +26,8 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 SOURCES = ("topk_streaming", "tree_sampler", "scatter_add", "temporal_sum",
-           "fused_tower")
+           "fused_tower", "topk_streaming_int8", "topk_exact", "topk_segmax",
+           "gather")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -45,9 +46,14 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Tuple[str, str]:
+    """(source, library path); the name hashes the source, the shared
+    headers (``csrc/*.cuh``) and the flags."""
     src = os.path.join(_CSRC, name + ".cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(_CSRC) if f.endswith(".cuh"))
+    for path in [src] + [os.path.join(_CSRC, h) for h in headers]:
+        with open(path, "rb") as f:
+            digest.update(f.read())
     return src, os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:16]}.so")
 
 

@@ -38,150 +38,54 @@
 //     unlike the TPU grid's running top-k scratch.
 //   pass 2 (merge_topk_kernel): one block per user selects the k largest
 //     candidate keys by an MSB-first radix select over the 64-bit keys
-//     (8-bit digits, stopping as soon as the boundary bin is taken whole),
+//     (8-bit digits, stopping as soon as the boundary bin is taken whole;
+//     topk_common.cuh, shared with the other top-k kernels),
 //     gathers the <= 64 winners in shared memory and ranks them.  When
 //     fewer than k candidates exist, the block also takes the largest key
 //     of the blocks before the last for the empty slots' id.
 // Both launches go on the caller's stream; the caller owns all buffers.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "topk_common.cuh"
 
 namespace {
 
-constexpr float kNegInf = -3.0e38f;
+using ncf::kChunk;
+using ncf::kNegInf;
+using ncf::kThreads;
 #define NCF_MINUS_INF __int_as_float(0xff800000)
-constexpr int kChunk = 128;    // items per pass-1 block
-constexpr int kDk = 32;        // D-slice staged per step
-constexpr int kThreads = 256;  // pass-1 threads
 constexpr int kMergeThreads = 512;
 constexpr int kMaxK = 64;
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
 __device__ __forceinline__ unsigned long long make_key(float v,
                                                        unsigned int pos) {
-  unsigned int b = __float_as_uint(v);
-  unsigned int m = (b & 0x80000000u) ? ~b : (b | 0x80000000u);
-  return ((unsigned long long)m << 32) | (unsigned int)(~pos);
+  return ((unsigned long long)ncf::mono_f32(v) << 32) | (unsigned int)(~pos);
 }
 
 __device__ __forceinline__ float key_value(unsigned long long key) {
-  unsigned int m = (unsigned int)(key >> 32);
-  unsigned int b = (m & 0x80000000u) ? (m & 0x7FFFFFFFu) : ~m;
-  return __uint_as_float(b);
+  return ncf::unmono_f32((unsigned int)(key >> 32));
 }
 
-// pos -> item id: pos = ((block * seg_top + rank) * nseg + seg) *
-// seg_width + off, id = (block * nseg + seg) * seg_width + off
-__device__ __forceinline__ int key_id(unsigned long long key, int seg_width,
-                                      int seg_top, int nseg) {
-  unsigned int pos = ~(unsigned int)(key & 0xFFFFFFFFull);
-  unsigned int off = pos % (unsigned)seg_width;
-  unsigned int t = pos / (unsigned)seg_width;
-  unsigned int seg = t % (unsigned)nseg;
-  unsigned int block = t / (unsigned)nseg / (unsigned)seg_top;
-  return (int)((block * (unsigned)nseg + seg) * (unsigned)seg_width + off);
-}
-
-__device__ __forceinline__ bool better(float va, int oa, float vb, int ob) {
-  return va > vb || (va == vb && oa < ob);
-}
-
-__device__ __forceinline__ void insert2(float v, int o, float& v1, int& o1,
-                                        float& v2, int& o2) {
-  if (better(v, o, v1, o1)) {
-    v2 = v1; o2 = o1; v1 = v; o1 = o;
-  } else if (better(v, o, v2, o2)) {
-    v2 = v; o2 = o;
-  }
-}
-
-// TU users x 128 items per block; each thread owns UM users x IM items,
-// strided (user ty + m*TY, item tx + j*TX) so shared reads are conflict-free.
 template <typename T, int TU, int UM, int IM>
 __global__ void __launch_bounds__(kThreads)
 seg_topk_kernel(const T* __restrict__ q, const T* __restrict__ table,
                 const float* __restrict__ bias, int B, int D, int n_rows,
                 int seg_width, int seg_top, int nseg, int n_utiles,
                 int ncand, unsigned long long* __restrict__ keys) {
-  constexpr int TX = kChunk / IM;
-  constexpr int TY = TU / UM;
-  static_assert(TX * TY == kThreads, "thread tiling must cover the block");
-  constexpr int QSTR = TU + 1;
-  constexpr int TSTR = kChunk + 1;
   constexpr int SSTR = kChunk + 1;
-  constexpr int STAGE = kDk * (QSTR + TSTR);
+  constexpr int STAGE = ncf::stage_floats<TU>();
   constexpr int SCORES = TU * SSTR;
   __shared__ float smem[STAGE > SCORES ? STAGE : SCORES];
-  float* Qs = smem;               // [kDk][QSTR]
-  float* Ts = smem + kDk * QSTR;  // [kDk][TSTR]
   float* S = smem;                // [TU][SSTR], reused after the product
 
   const int tid = threadIdx.x;
-  const int tx = tid % TX;
-  const int ty = tid / TX;
   const int utile = blockIdx.x % n_utiles;
   const long long chunk = blockIdx.x / n_utiles;
   const long long row0 = chunk * kChunk;
   const int u0 = utile * TU;
 
-  float acc[UM][IM];
-#pragma unroll
-  for (int m = 0; m < UM; ++m)
-#pragma unroll
-    for (int j = 0; j < IM; ++j) acc[m][j] = 0.f;
-
-  for (int d0 = 0; d0 < D; d0 += kDk) {
-    for (int e = tid; e < kChunk * kDk; e += kThreads) {
-      int r = e / kDk, c = e % kDk;
-      long long row = row0 + r;
-      int d = d0 + c;
-      float v = 0.f;
-      if (row < n_rows && d < D) v = to_f(table[row * D + d]);
-      Ts[c * TSTR + r] = v;
-    }
-    for (int e = tid; e < TU * kDk; e += kThreads) {
-      int r = e / kDk, c = e % kDk;
-      int u = u0 + r;
-      int d = d0 + c;
-      float v = 0.f;
-      if (u < B && d < D) v = to_f(q[(long long)u * D + d]);
-      Qs[c * QSTR + r] = v;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int c = 0; c < kDk; ++c) {
-      float a[UM], b[IM];
-#pragma unroll
-      for (int m = 0; m < UM; ++m) a[m] = Qs[c * QSTR + ty + m * TY];
-#pragma unroll
-      for (int j = 0; j < IM; ++j) b[j] = Ts[c * TSTR + tx + j * TX];
-#pragma unroll
-      for (int m = 0; m < UM; ++m)
-#pragma unroll
-        for (int j = 0; j < IM; ++j) acc[m][j] = fmaf(a[m], b[j], acc[m][j]);
-    }
-    __syncthreads();
-  }
-
-  // epilogue: bias, padded rows out of reach
-#pragma unroll
-  for (int m = 0; m < UM; ++m) {
-#pragma unroll
-    for (int j = 0; j < IM; ++j) {
-      int ul = ty + m * TY;
-      int il = tx + j * TX;
-      long long row = row0 + il;
-      float v = NCF_MINUS_INF;
-      if (row < n_rows) v = acc[m][j] + (bias ? bias[row] : 0.f);
-      S[ul * SSTR + il] = v;
-    }
-  }
+  // scores + bias; padded rows out of reach
+  ncf::score_tile<T, T, TU, UM, IM>(q, table, bias, B, D, n_rows, u0, row0,
+                                    NCF_MINUS_INF, smem, S, SSTR);
   __syncthreads();
 
   // one warp per (user, segment): top-seg_top by (value desc, offset asc)
@@ -200,7 +104,7 @@ seg_topk_kernel(const T* __restrict__ q, const T* __restrict__ table,
     int o1 = 0x7FFFFFFF, o2 = 0x7FFFFFFF;
     for (int e = 0; e < per; ++e) {
       int off = lane + e * 32;
-      insert2(S[ul * SSTR + s * seg_width + off], off, v1, o1, v2, o2);
+      ncf::insert2(S[ul * SSTR + s * seg_width + off], off, v1, o1, v2, o2);
     }
 #pragma unroll
     for (int x = 16; x > 0; x >>= 1) {
@@ -208,8 +112,8 @@ seg_topk_kernel(const T* __restrict__ q, const T* __restrict__ table,
       int p1 = __shfl_xor_sync(0xffffffffu, o1, x);
       float w2 = __shfl_xor_sync(0xffffffffu, v2, x);
       int p2 = __shfl_xor_sync(0xffffffffu, o2, x);
-      insert2(w1, p1, v1, o1, v2, o2);
-      insert2(w2, p2, v1, o1, v2, o2);
+      ncf::insert2(w1, p1, v1, o1, v2, o2);
+      ncf::insert2(w2, p2, v1, o1, v2, o2);
     }
     if (lane < seg_top) {
       float v = lane == 0 ? v1 : v2;
@@ -231,83 +135,20 @@ merge_topk_kernel(const unsigned long long* __restrict__ keys, int ncand,
                   int early, int k, int num_items, int seg_width,
                   int seg_top, int nseg, float* __restrict__ out_vals,
                   int* __restrict__ out_ids) {
-  __shared__ unsigned int hist[256];
   __shared__ unsigned long long sel[kMaxK];
-  __shared__ unsigned long long s_prefix, s_mask, s_best;
-  __shared__ int s_need, s_done, s_count;
+  __shared__ unsigned long long s_best;
 
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
   const unsigned long long* kb = keys + (long long)blockIdx.x * ncand;
-  if (tid == 0) {
-    s_prefix = 0ull; s_mask = 0ull; s_best = 0ull;
-    s_need = k; s_done = 0; s_count = 0;
-  }
-  __syncthreads();
-
-  // MSB-first radix select of the k-th largest nonzero key; keys are
-  // unique (ids are), so the boundary bin always ends with one key
-  for (int shift = 56; shift >= 0; shift -= 8) {
-    for (int i = tid; i < 256; i += kMergeThreads) hist[i] = 0u;
-    __syncthreads();
-    const unsigned long long prefix = s_prefix, mask = s_mask;
-    for (int base = 0; base < ncand; base += kMergeThreads) {
-      int i = base + tid;
-      int digit = 256;  // no bin
-      if (i < ncand) {
-        unsigned long long key = kb[i];
-        if (key != 0ull && (key & mask) == prefix)
-          digit = (int)((key >> shift) & 0xFFull);
-      }
-      unsigned int peers = __match_any_sync(0xffffffffu, digit);
-      if (digit < 256 && lane == __ffs(peers) - 1)
-        atomicAdd(&hist[digit], (unsigned int)__popc(peers));
-    }
-    __syncthreads();
-    if (tid == 0) {
-      int need = s_need;
-      if (shift == 56) {
-        unsigned int total = 0u;
-        for (int d = 0; d < 256; ++d) total += hist[d];
-        if ((int)total <= need) s_done = 1;  // take every candidate
-      }
-      if (!s_done) {
-        unsigned int cum = 0u;
-        for (int d = 255; d >= 0; --d) {
-          unsigned int h = hist[d];
-          if ((int)(cum + h) >= need) {
-            s_prefix = prefix | ((unsigned long long)d << shift);
-            s_mask = mask | (0xFFull << shift);
-            s_need = need - (int)cum;
-            if ((int)h == s_need) s_done = 1;
-            break;
-          }
-          cum += h;
-        }
-      }
-    }
-    __syncthreads();
-    if (s_done) break;
-  }
-
-  // winners: nonzero keys whose selected prefix is at or above the boundary
-  const unsigned long long prefix = s_prefix, mask = s_mask;
-  for (int i = tid; i < ncand; i += kMergeThreads) {
-    unsigned long long key = kb[i];
-    if (key != 0ull && (key & mask) >= prefix) {
-      int slot = atomicAdd(&s_count, 1);
-      if (slot < kMaxK) sel[slot] = key;
-    }
-  }
-  __syncthreads();
-  const int n = s_count < k ? s_count : k;
+  if (tid == 0) s_best = 0ull;
+  const int n = ncf::select_top_keys<kMergeThreads, kMaxK>(kb, ncand, k, sel);
   float* ov = out_vals + (long long)blockIdx.x * k;
   int* oi = out_ids + (long long)blockIdx.x * k;
   if (tid < n) {
     unsigned long long key = sel[tid];
     int rank = 0;
     for (int j = 0; j < n; ++j) rank += sel[j] > key;
-    int id = key_id(key, seg_width, seg_top, nseg);
+    int id = ncf::key_id(key, seg_width, seg_top, nseg);
     ov[rank] = key_value(key);
     oi[rank] = id < num_items - 1 ? id : num_items - 1;
   }
@@ -320,7 +161,7 @@ merge_topk_kernel(const unsigned long long* __restrict__ keys, int ncand,
     atomicMax(&s_best, best);
     __syncthreads();
     int fill = 0;
-    if (s_best != 0ull) fill = key_id(s_best, seg_width, seg_top, nseg);
+    if (s_best != 0ull) fill = ncf::key_id(s_best, seg_width, seg_top, nseg);
     fill = fill < num_items - 1 ? fill : num_items - 1;
     for (int r = n + tid; r < k; r += kMergeThreads) {
       ov[r] = kNegInf;

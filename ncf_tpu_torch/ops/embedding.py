@@ -1,10 +1,11 @@
 """Embedding lookup: a row gather whose backward is the scatter-add
-kernel B2.
+kernel B2, or under ``set_impl("pallas")`` the gather kernel B7.
 
-Port of ``ncf_tpu/ops/embedding.py``.  The forward is ``table[ids]``.
-The backward adds the output gradient into an f32 ``[N, D]`` table
-(``ops/scatter.py::onehot_scatter_add``: the kernel on the card, its
-plain version on the CPU) and casts it to the table's dtype.
+Port of ``ncf_tpu/ops/embedding.py``.  Under the default ``"xla"`` the
+forward is ``table[ids]`` and the backward adds the output gradient into
+an f32 ``[N, D]`` table (``ops/scatter.py::onehot_scatter_add``: the
+kernel on the card, its plain version on the CPU) and casts it to the
+table's dtype.
 
 The rounding mode follows the reference's routing on a TPU
 (``embedding.py:121-134``): where the JAX package would run its scatter
@@ -12,17 +13,36 @@ kernel, the configured mode (``split`` under ``auto``, ``bf16`` under
 ``fast``); where it would run XLA's scatter, ``f32``.  So on the card
 every table gradient goes through B2.  On the TPU XLA's scatter adds in
 the table's dtype; B2 always adds in f32.
+
+Under ``"pallas"`` every lookup goes through ``ops/gather.py`` (B7) and
+its backward is a scatter-add in the table's dtype, as the reference's
+``_IMPL == "pallas"`` branch wins before its scatter routing.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ncf_tpu_torch.ops.gather import pallas_embedding_lookup
 from ncf_tpu_torch.ops.scatter import (onehot_scatter_add, scatter_fits,
                                        scatter_preferred)
 
+_IMPL = "xla"
 _SCATTER_IMPL = "auto"
 _SCATTER_MODE = "split"
+
+
+def set_impl(impl: str) -> None:
+    """Forward impl: ``"xla"`` (default, ``table[ids]``) or ``"pallas"``
+    (the gather kernel B7)."""
+    global _IMPL
+    if impl not in ("xla", "pallas"):
+        raise ValueError(f"unknown embedding impl {impl!r}")
+    _IMPL = impl
+
+
+def get_impl() -> str:
+    return _IMPL
 
 
 def set_scatter_impl(impl: str, mode: str = "split") -> None:
@@ -74,6 +94,8 @@ class _Lookup(torch.autograd.Function):
 
 def embedding_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """Gather rows: table [N, D], ids int[...]  ->  [..., D]."""
+    if _IMPL == "pallas":
+        return pallas_embedding_lookup(table, ids)
     if not (torch.is_grad_enabled() and table.requires_grad):
         return table[ids.long()]
     return _Lookup.apply(table, ids)

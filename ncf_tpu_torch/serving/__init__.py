@@ -1,5 +1,6 @@
-from ncf_tpu_torch.serving.scorer import (AdvancedNCFScorer,
+from ncf_tpu_torch.serving.scorer import (AdvancedNCFScorer, BruteForceScorer,
                                           SequenceRescoreScorer)
 from ncf_tpu_torch.serving.server import ModelServer
 
-__all__ = ["AdvancedNCFScorer", "ModelServer", "SequenceRescoreScorer"]
+__all__ = ["AdvancedNCFScorer", "BruteForceScorer", "ModelServer",
+           "SequenceRescoreScorer"]

@@ -1,6 +1,6 @@
-"""Exact AdvancedNCF top-k retrieval via the dot-product decomposition.
+"""Top-k scorers: the AdvancedNCF decomposition and the model-agnostic scan.
 
-Port of ``ncf_tpu/serving/scorer.py::AdvancedNCFScorer``.  In eval mode
+Port of ``ncf_tpu/serving/scorer.py``.  In eval mode
 the AdvancedNCF logit decomposes exactly into a dot product plus a
 per-item bias:
 
@@ -12,7 +12,11 @@ per-item bias:
 
 so full-model top-k retrieval is a streaming top-k over the item table
 (``ops.topk``).  Large catalogs on the card go through the hand-written
-streaming kernel against a once-prepared table per bias context.
+streaming kernel against a once-prepared table per bias context: B5 under
+the ``exact`` and ``fast`` presets, the int8 kernel B6 under ``int8``
+(over-fetch, then an exact rescore) and ``int8-fast`` (dequantized
+scores).  ``impl="pallas"`` and ``"segmented"`` take the kernels B8 and B9
+on the raw table.
 
 Each request makes one device-to-host copy: the values and the ids come
 back together in one ``.cpu()``.
@@ -22,8 +26,8 @@ candidates from the decomposition at a population-mean sequence context,
 then an exact rescore of them with each user's real history through
 ``score_candidates`` (whose tower is the fused kernel B4f on the card).
 
-Not ported yet: the ``int8``/``int8-fast`` presets (their kernel is the
-TPU's ``topk_scores_streaming_int8``) and ``BruteForceScorer``.
+``BruteForceScorer`` serves models without the decomposition (NCF,
+NeuMF): ``score_candidates`` over item chunks with a running merge.
 """
 
 from __future__ import annotations
@@ -34,21 +38,31 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ncf_tpu_torch.convert import tree_leaves
 from ncf_tpu_torch.models import advanced_ncf, temporal as temporal_mod
 from ncf_tpu_torch.models.layers import dense, layer_norm, mlp_tower
-from ncf_tpu_torch.ops.topk import PreparedItems, prepare_items, topk_scores
+from ncf_tpu_torch.ops.topk import (PreparedItemsInt8, _topk_lowest_index,
+                                    prepare_items, prepare_items_int8,
+                                    rescore_exact, topk_scores)
 from ncf_tpu_torch.utils.config import ModelConfig
 from ncf_tpu_torch.utils.device import torch_dtype
 
 # the prepared table only pays when retrieval takes the streaming kernel
 # (large catalogs on the card); below this the dense path wins anyway
 _PREPARE_MIN_ITEMS = 1 << 16
+# ... and only on these devices (the reference: only on a TPU)
+_PREPARE_DEVICES = ("cuda",)
 # each prepared table is a full catalog copy (1 GB at 4M x 64 f32): cap
 # the cache far below the bias cache's 32
 _PREPARED_CACHE_SIZE = 4
 # item rows per tower pass when building the bias: bounds the [rows, 256]
 # activations (4 GB at 4M items in one pass); row-wise ops, same result
 _BIAS_CHUNK_ROWS = 1 << 20
+# 'int8' preset: extra candidates fetched before the exact rescore
+_INT8_OVERFETCH = 6
+# (seg_width, seg_top) of each retrieval preset
+_PRESETS = {"exact": (128, 2), "fast": (64, 1), "int8": (128, 1),
+            "int8-fast": (128, 1)}
 
 
 def _context_key(temporal: Optional[Dict[str, int]]) -> Tuple:
@@ -72,23 +86,26 @@ class AdvancedNCFScorer:
         retrieval: str = "exact",
     ):
         """``retrieval`` picks the streaming kernel's recall/speed point:
-        'exact' (segments of 128, top 2 each) or 'fast' (64, top 1).
-        Small catalogs use the exact dense path under every preset.  The
-        tables live on the device of ``params``."""
-        if retrieval in ("int8", "int8-fast"):
-            raise NotImplementedError(
-                f"retrieval={retrieval!r}: the int8 tier is not ported yet")
-        if retrieval not in ("exact", "fast"):
+        'exact' (segments of 128, top 2 each), 'fast' (64, top 1), 'int8'
+        (the int8 tier at 128, top 1, over-fetching ``_INT8_OVERFETCH``
+        candidates and returning their exact rescored scores) or
+        'int8-fast' (the same without the rescore: dequantized scores).
+        The int8 tiers quantize against the user-query table's
+        per-dimension maxima.  Small catalogs use the exact dense path
+        under every preset.  The tables live on the device of
+        ``params``."""
+        if retrieval not in _PRESETS:
             raise ValueError(f"unknown retrieval preset: {retrieval!r}")
         self._retrieval = retrieval
-        self._seg_width, self._seg_top = {
-            "exact": (128, 2), "fast": (64, 1)}[retrieval]
+        self._int8 = retrieval.startswith("int8")
+        self._int8_rescore = retrieval == "int8"
+        self._seg_width, self._seg_top = _PRESETS[retrieval]
         self.cfg = cfg
         self.impl = impl
         self.item_dept = item_dept
         self.item_cat = item_cat
         self._bias_cache: Dict[Tuple, torch.Tensor] = {}
-        self._prepared_cache: Dict[Tuple, PreparedItems] = {}
+        self._prepared_cache: Dict[Tuple, object] = {}
         self._bias_cache_size = bias_cache_size
         # the sequence-context vector [dm] of the all-items tower input
         # (SequenceRescoreScorer's stage 1); None for other models
@@ -120,24 +137,42 @@ class AdvancedNCFScorer:
         self.user_queries = (
             layer_norm(params["mf_norm"], params["user_emb"][:, :dmf])
             * w_mf[None, :] * self._wf1)
+        # per-dimension |q| bound over the user-query table: fixes the int8
+        # tiers' query and bias scale
+        self._q_maxabs = self.user_queries.abs().amax(dim=0)
         with self._cache_lock:
             self._bias_cache.clear()
             self._prepared_cache.clear()
 
-    def _prepared(self, key: Tuple, bias: torch.Tensor):
-        """Cached prepared item table for the streaming kernel (one per
-        bias context), or None where retrieval takes another path."""
-        if (self.cfg.num_items < _PREPARE_MIN_ITEMS
-                or self.impl not in ("auto", "streaming")
-                or self.device.type != "cuda"):
-            return None
+    def _prepares(self) -> bool:
+        """Whether retrieval takes a prepared table: a large catalog, a
+        streaming ``impl``, and the card."""
+        return (self.cfg.num_items >= _PREPARE_MIN_ITEMS
+                and self.impl in ("auto", "streaming")
+                and self.device.type in _PREPARE_DEVICES)
+
+    def _cached(self, key: Tuple, build):
         with self._cache_lock:
             if key not in self._prepared_cache:
                 if len(self._prepared_cache) >= _PREPARED_CACHE_SIZE:
                     self._prepared_cache.pop(next(iter(self._prepared_cache)))
-                self._prepared_cache[key] = prepare_items(
-                    self.item_vecs, bias, seg_width=self._seg_width)
+                self._prepared_cache[key] = build()
             return self._prepared_cache[key]
+
+    def _prepared(self, key: Tuple, bias: torch.Tensor,
+                  q_maxabs: Optional[torch.Tensor] = None):
+        """Cached prepared item table for the streaming kernel (one per
+        bias context: int8 under the int8 presets, quantized against
+        ``q_maxabs`` [D], the bound of that context's queries), or None
+        where retrieval takes another path."""
+        if not self._prepares():
+            return None
+        if self._int8:
+            qrow = (self._q_maxabs if q_maxabs is None else q_maxabs)[None, :]
+            return self._cached(key, lambda: prepare_items_int8(
+                self.item_vecs, bias, qrow, seg_width=self._seg_width))
+        return self._cached(key, lambda: prepare_items(
+            self.item_vecs, bias, seg_width=self._seg_width))
 
     def _tower_logit(self, item_mlp: torch.Tensor,
                      t_row: Optional[torch.Tensor]) -> torch.Tensor:
@@ -251,7 +286,8 @@ class AdvancedNCFScorer:
         mod = self._hour_mod(hour)
         bias = self._hourly_item_bias(hour)
         return self._retrieve(self._ids(user_ids), mod, ("hour_bias", hour),
-                              bias, k, exclude)
+                              bias, k, exclude,
+                              q_maxabs=self._q_maxabs * mod.abs())
 
     def topk_for_users(
         self,
@@ -269,24 +305,52 @@ class AdvancedNCFScorer:
                               _context_key(temporal), bias, k, exclude)
 
     @torch.no_grad()
-    def _retrieve(self, ids, mod, key, bias, k, exclude):
+    def _retrieve(self, ids, mod, key, bias, k, exclude, q_maxabs=None):
         """Shared retrieval tail: query gather, prepared-table streaming
-        top-k (or the dispatch's plain paths), one host copy, exclusion
-        filtering, sigmoid."""
+        top-k (with the int8 tiers' over-fetch and exact rescore) or the
+        dispatch's other paths, one host copy, exclusion filtering,
+        sigmoid."""
         q = self.user_queries[ids]
         if mod is not None:
             q = q * mod[None, :]
         fetch = k if exclude is None else min(
             self.cfg.num_items, k + exclude.shape[1])
-        # fetch > 64 exceeds the streaming kernel's merge: a prepared
-        # table would be unfolded per call by the dispatch — the blocked
-        # plain path reads the raw table in place instead
-        prep = self._prepared(key, bias) if fetch <= 64 else None
-        if prep is not None:
-            vals, idxs = topk_scores(q, prep, fetch, seg_top=self._seg_top)
+        int8_cap = fetch + (_INT8_OVERFETCH if self._int8_rescore else 0)
+        if self._int8 and int8_cap > 64:
+            # past the int8 kernel's merge (k <= 64) the dispatch would
+            # dequantize the whole table per call; exclusion-heavy requests
+            # take the exact bf16-tier routing instead (the reference's):
+            # a prepared table at seg 128/2 (B5) while fetch fits the
+            # merge, else the blocked exact path on the raw table
+            if fetch <= 64 and self._prepares():
+                prep = self._cached(("bf16_fallback", key), lambda: (
+                    prepare_items(self.item_vecs, bias, seg_width=128)))
+                vals, idxs = topk_scores(q, prep, fetch, seg_top=2)
+            else:
+                vals, idxs = topk_scores(q, self.item_vecs, fetch, bias,
+                                         impl=self.impl, seg_top=2)
         else:
-            vals, idxs = topk_scores(q, self.item_vecs, fetch, bias,
-                                     impl=self.impl, seg_top=self._seg_top)
+            # fetch > 64 exceeds the streaming kernel's merge: a prepared
+            # table would be unfolded per call by the dispatch — the
+            # blocked plain path reads the raw table in place instead
+            prep = (self._prepared(key, bias, q_maxabs) if fetch <= 64
+                    else None)
+            if prep is not None:
+                kern_fetch = fetch
+                if self._int8_rescore:
+                    # int8 order misplaces near-ties: fetch extra
+                    # candidates, rescore exactly, keep the true best
+                    kern_fetch = min(fetch + _INT8_OVERFETCH,
+                                     self.cfg.num_items)
+                vals, idxs = topk_scores(q, prep, kern_fetch,
+                                         seg_top=self._seg_top)
+                if self._int8_rescore and isinstance(prep, PreparedItemsInt8):
+                    vals, idxs = rescore_exact(q, self.item_vecs, bias, idxs)
+                    vals, idxs = vals[:, :fetch], idxs[:, :fetch]
+            else:
+                vals, idxs = topk_scores(q, self.item_vecs, fetch, bias,
+                                         impl=self.impl,
+                                         seg_top=self._seg_top)
         vals, idxs = _to_host(vals, idxs)
         if exclude is not None:
             vals, idxs = _filter_excluded(vals, idxs, exclude, k)
@@ -401,7 +465,11 @@ class SequenceRescoreScorer(AdvancedNCFScorer):
             k + (exclude.shape[1] if exclude is not None else 0))))
         key = _context_key(temporal)
         bias = self.item_bias(temporal)
-        prep = self._prepared(key, bias) if fetch <= 64 else None
+        # past the merge (fetch > 64) the dispatch unfolds a prepared
+        # table: the raw table serves bf16 presets alike, while the int8
+        # tiers keep the reference's dequantized unfold
+        prep = (self._prepared(key, bias) if fetch <= 64 or self._int8
+                else None)
         q = self.user_queries[ids]
         if prep is not None:
             _, cand = topk_scores(q, prep, fetch, seg_top=self._seg_top)
@@ -469,3 +537,66 @@ def _sigmoid(x: np.ndarray) -> np.ndarray:
     pos = x >= 0
     out = np.where(pos, 1.0 / (1.0 + out), out / (1.0 + out))
     return np.where(np.isfinite(x), out, 0.0).astype(np.float32)
+
+
+class BruteForceScorer:
+    """Model-agnostic top-k: ``score_candidates`` over chunks of
+    ``chunk`` items with a running merge (ties to the carry, then to the
+    lower id).  Works for any registered model; NCF and NeuMF have no
+    dot-product decomposition and serve through it.  Exact."""
+
+    def __init__(self, model, params, cfg: ModelConfig, item_dept=None,
+                 item_cat=None, chunk: int = 4096, user_history=None):
+        self.model, self.params, self.cfg = model, params, cfg
+        self.item_dept, self.item_cat = item_dept, item_cat
+        self.chunk = chunk
+        self.device = tree_leaves(params)[0].device
+        self.user_history = (None if user_history is None else
+                             torch.as_tensor(np.asarray(user_history,
+                                                        np.int32),
+                                             device=self.device))
+
+    def refresh(self, params) -> None:
+        """Swap params in place."""
+        self.params = params
+
+    @torch.no_grad()
+    def _scan_topk(self, user_ids: torch.Tensor, temporal, k: int):
+        I = self.cfg.num_items
+        C = min(self.chunk, I)
+        B = user_ids.shape[0]
+        history = (None if self.user_history is None
+                   else self.user_history[user_ids])
+        vals = torch.full((B, k), -np.inf, device=self.device)
+        idxs = torch.zeros((B, k), dtype=torch.int32, device=self.device)
+        for start in range(0, I, C):
+            cand = (start + torch.arange(C, dtype=torch.int32,
+                                         device=self.device))[None, :]
+            cand = cand.expand(B, C)
+            kwargs = {} if history is None else {"history": history}
+            logits = self.model.score_candidates(
+                self.params, self.cfg, user_ids, torch.clamp(cand, max=I - 1),
+                temporal, self.item_dept, self.item_cat, **kwargs)
+            logits = torch.where(cand < I, logits.to(torch.float32),
+                                 torch.full_like(logits, -np.inf,
+                                                 dtype=torch.float32))
+            vals, sel = _topk_lowest_index(torch.cat([vals, logits], 1), k)
+            idxs = torch.gather(torch.cat([idxs, cand], 1), 1, sel.long())
+        return vals, idxs
+
+    def topk_for_users(self, user_ids, k: int = 10, temporal=None,
+                       exclude=None) -> Tuple[np.ndarray, np.ndarray]:
+        ids = torch.as_tensor(np.asarray(user_ids), dtype=torch.long,
+                              device=self.device)
+        t = None
+        if temporal is not None:
+            t = {key: torch.full((ids.shape[0],), int(temporal.get(key, 0)),
+                                 dtype=torch.long, device=self.device)
+                 for key in ("hour", "day", "month", "day_of_year")}
+        fetch = k if exclude is None else min(
+            self.cfg.num_items, k + exclude.shape[1])
+        vals, idxs = _to_host(*self._scan_topk(ids, t, fetch))
+        vals = _sigmoid(vals)
+        if exclude is not None:
+            vals, idxs = _filter_excluded(vals, idxs, exclude, k)
+        return vals, idxs

@@ -3,12 +3,10 @@
 Loads a checkpoint (the npy manifest format both packages share), exposes
 user/product embeddings, pair predictions and full top-k retrieval backed
 by the exact decomposition scorer (``SequenceRescoreScorer`` for
-``use_sequence`` models, over ``user_history``), and coalesces concurrent
-single-user requests into shared batched retrievals.  Runs on the card
-unless the caller passes ``device="cpu"``.
-
-Not ported yet: models other than ``advanced_ncf`` (the reference's
-``BruteForceScorer``).
+``use_sequence`` models, over ``user_history``) for ``advanced_ncf`` and
+by ``BruteForceScorer`` for the other models (NCF, NeuMF), and coalesces
+concurrent single-user requests into shared batched retrievals.  Runs on
+the card unless the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -26,8 +24,8 @@ import torch
 
 from ncf_tpu_torch.convert import params_to_device
 from ncf_tpu_torch.models import get_model
-from ncf_tpu_torch.serving.scorer import (AdvancedNCFScorer,
-                                          SequenceRescoreScorer)
+from ncf_tpu_torch.serving.scorer import (
+    AdvancedNCFScorer, BruteForceScorer, SequenceRescoreScorer)
 from ncf_tpu_torch.train import checkpoint as ckpt_lib
 from ncf_tpu_torch.utils.config import Config
 from ncf_tpu_torch.utils.device import DeviceLike, resolve_device
@@ -200,10 +198,6 @@ class ModelServer:
         device: DeviceLike = None,
     ):
         self.device = resolve_device(device)
-        if cfg.model.name != "advanced_ncf":
-            raise NotImplementedError(
-                f"serving {cfg.model.name!r} (BruteForceScorer) is not "
-                "ported yet")
         self.cfg = cfg
         self.model = get_model(cfg.model.name)
         self.model_version = model_version or cfg.serving.model_version
@@ -254,8 +248,13 @@ class ModelServer:
         with self._lock:
             self.params = params
             # the sequence path makes the eval MLP logit user-dependent:
-            # such models serve through retrieve-then-rescore
-            if self.cfg.model.use_sequence:
+            # such models serve through retrieve-then-rescore; models
+            # without the decomposition scan the catalog
+            if self.cfg.model.name != "advanced_ncf":
+                self.scorer = BruteForceScorer(
+                    self.model, params, self.cfg.model, self.item_dept,
+                    self.item_cat, user_history=self.user_history)
+            elif self.cfg.model.use_sequence:
                 self.scorer = SequenceRescoreScorer(
                     params, self.cfg.model, self.item_dept, self.item_cat,
                     user_history=self.user_history,
@@ -298,7 +297,15 @@ class ModelServer:
         """Probability scores for one user against explicit candidates."""
         item_ids = np.atleast_1d(item_ids)
         users = np.full(len(item_ids), user_id, np.int32)
-        return self.scorer.score_pairs(users, item_ids, temporal)
+        if hasattr(self.scorer, "score_pairs"):
+            return self.scorer.score_pairs(users, item_ids, temporal)
+        # score the whole catalog, then map item id -> score
+        scores, idxs = self.scorer.topk_for_users(
+            np.asarray([user_id]), k=self.cfg.model.num_items,
+            temporal=temporal)
+        by_item = np.zeros(self.cfg.model.num_items, np.float32)
+        by_item[idxs[0]] = scores[0]
+        return by_item[np.asarray(item_ids)]
 
     def recommend(
         self,
@@ -328,14 +335,21 @@ class ModelServer:
         return scores, idxs, ms
 
     def recommend_hourly(self, user_id: int, hour: int, k: int = 10):
-        """Top-k under the demo's hour-of-day scoring."""
+        """Top-k under the demo's hour-of-day scoring; scorers without it
+        take a temporal context with the given hour."""
         t0 = time.perf_counter()
-        if self._coalescer is not None:
+        uids = np.asarray([user_id], np.int32)
+        if not hasattr(self.scorer, "topk_for_users_hourly"):
+            scores, idxs = self.scorer.topk_for_users(
+                uids, k=k, temporal={"hour": int(hour), "day": 0,
+                                     "month": 0, "day_of_year": 0})
+            scores, idxs = scores[0], idxs[0]
+        elif self._coalescer is not None:
             scores, idxs = self._coalescer.submit(
                 user_id, k, None, hour=int(hour))
         else:
             scores, idxs = self.scorer.topk_for_users_hourly(
-                np.asarray([user_id], np.int32), hour=int(hour), k=k)
+                uids, hour=int(hour), k=k)
             scores, idxs = scores[0], idxs[0]
         ms = (time.perf_counter() - t0) * 1000
         return scores, idxs, ms

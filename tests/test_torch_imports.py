@@ -33,7 +33,8 @@ def test_every_module_is_listed():
                  "ncf_tpu_torch.data.synthetic",
                  "ncf_tpu_torch.data.pipeline", "ncf_tpu_torch.data.sampler",
                  "ncf_tpu_torch.evals.metrics", "ncf_tpu_torch.train.optim",
-                 "ncf_tpu_torch.train.step", "ncf_tpu_torch.ops.tower"):
+                 "ncf_tpu_torch.train.step", "ncf_tpu_torch.ops.tower",
+                 "ncf_tpu_torch.ops.gather", "ncf_tpu_torch.models.ncf"):
         assert name in mods
 
 
@@ -77,6 +78,10 @@ def test_entry_points_default_to_the_card(monkeypatch):
     from ncf_tpu_torch.models import get_model
     from ncf_tpu_torch.train import make_optimizer, make_train_step
 
+    ncf_cfg = Config()
+    ncf_cfg.model.name = "neumf"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ModelServer(ncf_cfg)
     cfg = Config()
     with pytest.raises(RuntimeError, match="CUDA"):
         make_train_step(get_model("advanced_ncf"), cfg,
@@ -90,10 +95,17 @@ def test_the_kernel_loader_builds_nothing_on_import():
     assert _kernels._libs == {}
     assert set(_kernels.SOURCES) == {"topk_streaming", "tree_sampler",
                                      "scatter_add", "temporal_sum",
-                                     "fused_tower"}
+                                     "fused_tower", "topk_streaming_int8",
+                                     "topk_exact", "topk_segmax", "gather"}
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     for name in _kernels.SOURCES:
         assert os.path.exists(os.path.join(
             root, "ncf_tpu_torch", "ops", "csrc", name + ".cu"))
     assert _kernels.NVCC_FLAGS[:2] == ["-gencode",
                                        "arch=compute_90a,code=sm_90a"]
+    # the top-k kernels share a header: editing it changes every top-k
+    # library's name, so they rebuild
+    assert os.path.exists(os.path.join(root, "ncf_tpu_torch", "ops", "csrc",
+                                       "topk_common.cuh"))
+    assert os.path.basename(_kernels._target("topk_exact")[1]).startswith(
+        "libtopk_exact_")

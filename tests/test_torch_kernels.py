@@ -15,6 +15,11 @@ Tolerances:
   comparisons, the same order of f32 additions);
 - scatter-add (B2): within 1e-6 of the per-element magnitude sum
   ``sum |g|`` (f32 atomics add in an order that changes from run to run);
+- int8 streaming top-k (B6) and row gather (B7): equal, bit for bit
+  (integer arithmetic; a copy);
+- exact top-k (B8) and the segmented top-k (B9, after its exact rescore):
+  as the streaming top-k, with the queries in f32 (both keep them so);
+  on small-integer data, whose sums are exact, equal;
 - fused tower (B4f, B4b): identical dropout zeros; outputs within 1e-4
   (relative, plus 1e-4) for at least 95% of the elements and within 5e-2
   of the largest magnitude for all: f32 sums run in another order, and
@@ -46,19 +51,19 @@ def cuda():
     return torch.device("cuda")
 
 
-def _exact(q, table, bias, ids):
-    qd = q.to(table.dtype).double()
+def _exact(q, table, bias, ids, cast_q=True):
+    qd = (q.to(table.dtype) if cast_q else q).double()
     prod = qd[:, None, :] * table[ids.long()].double()
     s = prod.sum(-1) + (0 if bias is None else bias.double()[ids.long()])
     return s, 1e-5 * prod.abs().sum(-1) + 1e-6
 
 
-def _assert_close(kv, ki, rv, ri, q, table, bias):
+def _assert_close(kv, ki, rv, ri, q, table, bias, cast_q=True):
     valid = rv > topk.NEG_INF
     assert torch.equal(kv > topk.NEG_INF, valid)
     assert torch.equal(ki[~valid], ri[~valid])
-    sk, tol_k = _exact(q, table, bias, ki)
-    sr, tol_r = _exact(q, table, bias, ri)
+    sk, tol_k = _exact(q, table, bias, ki, cast_q)
+    sr, tol_r = _exact(q, table, bias, ri, cast_q)
     tol = torch.maximum(tol_k, tol_r)
     assert bool(((kv.double() - rv.double()).abs() <= tol)[valid].all())
     swap = (ki != ri) & valid
@@ -329,6 +334,162 @@ def test_streaming_raises_off_cpu_and_cuda():
         topk.topk_scores_streaming(q, t, k=5)
 
 
+# ------------------------------------- B6, B7, B8, B9 (slice 4's kernels)
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", (1, 7, 64, 300))
+@pytest.mark.parametrize("D", (64, 61))
+def test_int8_kernel_equals_plain_version(cuda, B, D):
+    gen = torch.Generator(device=cuda).manual_seed(B + D)
+    I = 100_003
+    items = torch.randn((I, D), generator=gen, device=cuda)
+    bias = torch.randn((I,), generator=gen, device=cuda)
+    q = torch.randn((B, D), generator=gen, device=cuda)
+    for seg in (128, 64, 32):
+        prep = topk.prepare_items_int8(items, bias, q, seg_width=seg)
+        for seg_top in (1, 2):
+            for k in (1, 10, 64):
+                kv, ki = topk.topk_scores_streaming_int8(q, prep, k,
+                                                         seg_top=seg_top)
+                rv, ri = topk.topk_scores_streaming_int8_ref(
+                    q, prep, k, seg_top=seg_top)
+                assert torch.equal(ki, ri) and torch.equal(kv, rv)
+
+
+@pytest.mark.cuda
+def test_int8_kernel_ties_padded_rows_and_fill(cuda):
+    """Small-integer tables (ties everywhere), real items below the padded
+    rows' floor, and fewer candidates than k."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    items = torch.randint(-1, 2, (20_000, 8), generator=gen,
+                          device=cuda).float()
+    q = torch.randint(-1, 2, (9, 8), generator=gen, device=cuda).float()
+    low = torch.full((300, 8), -1.0, device=cuda)
+    low[:, 0] += torch.linspace(0, 0.5, 300, device=cuda)
+    for it, b, qq, block, seg, k in (
+            (items, items[:, 0] * 0 + 1, q, 512, 32, 64),
+            (low, torch.full((300,), -1e9, device=cuda),
+             torch.ones((3, 8), device=cuda), 256, 64, 10),
+            (items[:200], None, q, 64, 64, 10)):
+        prep = topk.prepare_items_int8(it, b, qq, block_items=block,
+                                       seg_width=seg)
+        for seg_top in (1, 2):
+            got = topk.topk_scores_streaming_int8(qq, prep, k,
+                                                  seg_top=seg_top)
+            want = topk.topk_scores_streaming_int8_ref(qq, prep, k,
+                                                       seg_top=seg_top)
+            assert torch.equal(got[1], want[1])
+            assert torch.equal(got[0], want[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", (1, 9, 64))
+@pytest.mark.parametrize("dtype", ("float32", "bfloat16"))
+def test_exact_kernel_matches_plain_version(cuda, B, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(B)
+    I = 100_003
+    table = torch.randn((I, 64), generator=gen, device=cuda).to(
+        getattr(torch, dtype))
+    bias = torch.randn((I,), generator=gen, device=cuda)
+    q = torch.randn((B, 64), generator=gen, device=cuda)
+    for b in (bias, None):
+        for k in (1, 10, 64, 256):
+            kv, ki = topk.topk_scores_pallas(q, table, k, b)
+            rv, ri = topk.topk_scores_pallas_ref(q, table, k, b)
+            _assert_close(kv, ki, rv, ri, q, table, b, cast_q=False)
+
+
+@pytest.mark.cuda
+def test_exact_kernel_ties_and_empty_slots(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    t = torch.randint(-1, 2, (9_000, 16), generator=gen, device=cuda).float()
+    q = torch.randint(-1, 2, (17, 16), generator=gen, device=cuda).float()
+    b = torch.randint(0, 2, (9_000,), generator=gen, device=cuda).float()
+    b[:8_990] = topk.NEG_INF                 # ten real items, k above
+    for bias, k in ((None, 200), (b, 30)):
+        for block in (2048, 512):
+            got = topk.topk_scores_pallas(q, t, k, bias, block_items=block)
+            want = topk.topk_scores_pallas_ref(q, t, k, bias,
+                                               block_items=block)
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1],
+                                                                 want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", (1, 9, 64))
+@pytest.mark.parametrize("seg", (128, 64, 32))
+def test_segmented_kernel_matches_plain_version(cuda, B, seg):
+    gen = torch.Generator(device=cuda).manual_seed(B + seg)
+    I = 100_003
+    table = torch.randn((I, 64), generator=gen, device=cuda)
+    bias = torch.randn((I,), generator=gen, device=cuda)
+    q = torch.randn((B, 64), generator=gen, device=cuda)
+    for b in (bias, None):
+        kv, ki = topk.topk_scores_segmented(q, table, 10, b, seg_width=seg)
+        rv, ri = topk.topk_scores_segmented_ref(q, table, 10, b,
+                                                seg_width=seg)
+        _assert_close(kv, ki, rv, ri, q, table, b, cast_q=False)
+    # exact sums: the keys themselves are equal
+    ti = torch.randint(-2, 3, (5_000, 16), generator=gen, device=cuda).float()
+    qi = torch.randint(-2, 3, (B, 16), generator=gen, device=cuda).float()
+    keys = topk._segmax_cuda(qi, ti, None, 2048, seg)
+    assert torch.equal(keys, topk.segmax_keys_ref(qi, ti, None, 2048, seg))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d", [("float32", 64), ("bfloat16", 64),
+                                     ("bfloat16", 34), ("float32", 3)])
+def test_gather_kernel_equals_plain_version(cuda, dtype, d):
+    from ncf_tpu_torch.ops import gather
+
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    table = torch.randn((3706, d), generator=gen, device=cuda).to(
+        getattr(torch, dtype))
+    ids = torch.randint(-3706, 3706, (64, 3706), generator=gen, device=cuda)
+    for i in (ids, ids.to(torch.int32)):
+        got = gather.gather_rows(table, i)
+        assert torch.equal(got, gather.gather_rows_ref(table, i))
+    with pytest.raises(ValueError, match="multiple of 4 bytes"):
+        gather.gather_rows(table[:, :1].to(torch.bfloat16), ids)
+
+
+@pytest.mark.cuda
+def test_slice4_kernels_refuse_what_they_do_not_take(cuda):
+    items = torch.randn((1000, 16), device=cuda)
+    q = torch.randn((4, 16), device=cuda)
+    prep = topk.prepare_items_int8(items, None, q, block_items=256,
+                                   seg_width=256)
+    with pytest.raises(ValueError, match="seg_width"):
+        topk.topk_scores_streaming_int8(q, prep, 5)
+    prep = topk.prepare_items_int8(items, None, q, block_items=256)
+    with pytest.raises(ValueError, match="k <= 64"):
+        topk._streaming_int8_cuda(topk._quantize_queries(q, prep), prep,
+                                  65, 1)
+    with pytest.raises(ValueError, match="256"):
+        topk.topk_scores_pallas(q, items, 257)
+    with pytest.raises(TypeError):
+        topk.topk_scores_pallas(q, items.double(), 5)
+    with pytest.raises(ValueError, match="seg_width"):
+        topk.topk_scores_segmented(q, items, 5, seg_width=8)
+
+
+def test_slice4_wrappers_raise_off_cpu_and_cuda():
+    from ncf_tpu_torch.ops import gather
+
+    q = torch.zeros((2, 16), device="meta")
+    t = torch.zeros((500, 16), device="meta")
+    prep = topk.prepare_items_int8(t, None, q, block_items=128)
+    with pytest.raises(RuntimeError, match="no int8 streaming kernel"):
+        topk.topk_scores_streaming_int8(q, prep, 5)
+    with pytest.raises(RuntimeError, match="no exact top-k kernel"):
+        topk.topk_scores_pallas(q, t, 5)
+    with pytest.raises(RuntimeError, match="no segmented kernel"):
+        topk.topk_scores_segmented(q, t, 5)
+    with pytest.raises(RuntimeError, match="no gather kernel"):
+        gather.gather_rows(t, torch.zeros(3, dtype=torch.long,
+                                          device="meta"))
+
+
 # ------------------------------------------------- bindings, checked here
 
 def _prototypes():
@@ -353,7 +514,7 @@ def _prototypes():
 
 
 from ncf_tpu_torch.ops import _kernels, sampler, scatter, temporal_sum  # noqa: E402,E501
-from ncf_tpu_torch.ops import tower  # noqa: E402
+from ncf_tpu_torch.ops import gather, tower  # noqa: E402
 
 
 @pytest.mark.parametrize("mod", (topk, sampler, scatter, temporal_sum))
@@ -362,7 +523,9 @@ def test_bindings_match_the_c_prototypes(mod):
     assert _prototypes()[(lib, fn)] == codes
 
 
-@pytest.mark.parametrize("entry", (tower.C_FWD, tower.C_BWD))
+@pytest.mark.parametrize("entry", (tower.C_FWD, tower.C_BWD,
+                                   topk.INT8_ENTRY, topk.EXACT_ENTRY,
+                                   topk.SEGMAX_ENTRY, gather.C_ENTRY))
 def test_tower_bindings_match_the_c_prototypes(entry):
     lib, fn, codes = entry
     assert _prototypes()[(lib, fn)] == codes
@@ -407,6 +570,16 @@ def test_wrappers_pass_what_the_bindings_declare(monkeypatch):
     seed = torch.zeros(1, dtype=torch.int32)
     tower._fwd_cuda(x2, seed, flat, 0.2)
     tower._bwd_cuda(x2, torch.zeros(5, 16), seed, flat, 0.0)
+    prep = topk.prepare_items_int8(torch.randn(500, 16), None,
+                                   torch.randn(3, 16), block_items=128)
+    topk._streaming_int8_cuda(topk._quantize_queries(torch.zeros(3, 16),
+                                                     prep), prep, 10, 1)
+    topk._exact_cuda(torch.zeros(3, 16), torch.zeros(500, 16), None, 10, 0)
+    topk._segmax_cuda(torch.zeros(3, 16), torch.zeros(500, 16),
+                      torch.zeros(500), 512, 128)
+    gather._gather_cuda(torch.zeros(50, 8), torch.zeros(7, dtype=torch.long))
     assert calls == ["ncf_tree_sample", "ncf_scatter_add",
                      "ncf_temporal_sum", "ncf_topk_streaming",
-                     "ncf_tower_fwd", "ncf_tower_bwd"]
+                     "ncf_tower_fwd", "ncf_tower_bwd",
+                     "ncf_topk_streaming_int8", "ncf_topk_exact",
+                     "ncf_topk_segmax", "ncf_gather"]

@@ -148,8 +148,11 @@ def test_init_matches_the_pytree(demo):
         k, JModelConfig(use_sequence=True)), jax.random.PRNGKey(0))
     assert jax.tree.map(lambda a: tuple(a.shape), seq) == \
         jax.tree.map(lambda a: tuple(a.shape), jseq)
-    with pytest.raises(NotImplementedError):
-        get_model("ncf")
+    # NCF and NeuMF are ported now (tests/test_torch_ncf.py)
+    assert get_model("ncf") is get_model("neumf")
+    assert get_model("ncf").init is not tmodel.init
+    with pytest.raises(ValueError):
+        get_model("no-such-model")
 
 
 def test_temporal_apply(demo):

@@ -159,10 +159,18 @@ def test_reload_and_presets(servers):
     _same(ts.scorer.topk_for_users([3], k=5), js.scorer.topk_for_users([3], k=5))
     cfg = Config()
     cfg.serving.coalesce_requests = False
-    for preset in ("int8", "int8-fast"):
+    # the int8 presets serve now; a small catalog takes the exact dense
+    # path under every preset, as in the reference
+    want = None
+    for preset in ("exact", "int8", "int8-fast"):
         cfg.serving.retrieval = preset
-        with pytest.raises(NotImplementedError):
-            ModelServer(cfg, params=ts.params, device="cpu")
+        server = ModelServer(cfg, params=ts.params, device="cpu")
+        try:
+            got = server.scorer.topk_for_users([3, 9], k=5)
+            want = got if want is None else want
+            _same(got, want)
+        finally:
+            server.close()
     # sequence models serve now, through the two-stage scorer
     cfg.serving.retrieval = "fast"
     cfg.model.use_sequence = True

@@ -274,9 +274,13 @@ def test_dispatch_routes(monkeypatch):
                         lambda *a, **kw: calls.append("xla"))
     ttopk.topk_scores(big_q, torch.zeros((4097, 16)), k=5)
     assert calls == ["xla"]
+    # the other kernels' impls and the int8 tier route now
+    # (tests/test_torch_topk_variants.py, tests/test_torch_topk_int8.py)
+    calls.clear()
     for impl in ("pallas", "segmented"):
-        with pytest.raises(NotImplementedError):
-            ttopk.topk_scores(_t(q), _t(t), k=5, impl=impl)
-    with pytest.raises(NotImplementedError):
-        ttopk.prepare_items_int8(_t(t), None, _t(q))
+        v, i = ttopk.topk_scores(_t(q), _t(t), k=5, impl=impl)
+        assert v.shape == i.shape == (2, 5)
+    prep8 = ttopk.prepare_items_int8(_t(t), None, _t(q))
+    assert isinstance(prep8, ttopk.PreparedItemsInt8)
+    assert ttopk.topk_scores(_t(q), prep8, k=5)[1].shape == (2, 5)
 
