@@ -10,8 +10,10 @@ Phases (each asserts; any failure exits non-zero and prints no result):
    source, all started together), with its wall time;
 3. every kernel against its plain PyTorch version on the card, on the same
    inputs: the streaming top-k (B5) at the serving shapes, with tied
-   scores and empty slots; the sampler (B1), scatter-add (B2) and
-   temporal sum (B3) at the training step's shapes and at edge shapes;
+   scores and empty slots, and B5's and B8's answers for a user alone
+   equal bit for bit to the same user's inside batches of 17 and 64; the
+   sampler (B1), scatter-add (B2) and temporal sum (B3) at the training
+   step's shapes and at edge shapes;
    the fused tower's forward (B4f) and backward (B4b) at the three tower
    shapes of the training steps, with dropout 0 and 0.2, and at edge
    shapes (identical dropout zeros); the int8 streaming top-k (B6) bit for
@@ -37,9 +39,12 @@ Phases (each asserts; any failure exits non-zero and prints no result):
    (``ncf_ml100k.yaml``, 943 x 1682) through ``ModelServer`` ->
    ``BruteForceScorer`` under ``ops.embedding.set_impl("pallas")`` (B7),
    equal to ``"xla"`` on the card and to the CPU within a tolerance;
-5. kernel, plain-version and library-call times (CUDA events) at the
-   serving shapes, beside the least time the card could take (B5, B6, B8,
-   B9 at 4M items, B7 at NeuMF's scan);
+5. kernel, plain-version and library-call times (CUDA events, and device
+   time from the profiler, per pass for B5 and B8 beside the times of
+   their earlier CUDA-core versions) at
+   the serving shapes, beside the least time the card could take (B5, B6,
+   B8, B9 at 4M items, B7 at NeuMF's scan; B5 and B8 against their
+   tensor-core route and against the f32 FMA rate of their old one);
 6. the demo checkpoint served on the card against the port's CPU answers;
 7. training at full width, config A: ``configs/advanced_ncf_ml1m.yaml``
    as shipped (6040 users x 3706 items, batch 16384, bf16 compute, dropout
@@ -86,7 +91,15 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 NEG_INF = -3.0e38
 PEAK_BYTES_S = 3.35e12                  # H100 SXM HBM3
 PEAK_FLOP_S = {"float32": 67e12,        # CUDA-core f32
-               "bfloat16": 989e12}      # dense bf16 tensor cores
+               "bfloat16": 989e12,      # dense bf16 tensor cores
+               "tf32": 495e12}          # dense TF32 tensor cores
+# B5's and B8's times as CUDA-core kernels, before the tensor-core tile
+# replaced them (CUDA events, ms; NVIDIA H100 80GB HBM3, 700 W), printed
+# beside this run's
+CUDA_CORE_MS = {("topk_scores_streaming", 64, 4_000_000, "float32"): 2.470,
+          ("topk_scores_streaming", 1, 4_000_000, "float32"): 0.730,
+          ("topk_scores_streaming", 1024, 1_000_000, "bfloat16"): 9.451,
+          ("topk_scores_pallas", 64, 4_000_000, "float32"): 9.002}
 # kernel -> (its source, the TPU kernel it replaces)
 KERNELS = {
     "topk_scores_streaming": ("ncf_tpu_torch/ops/csrc/topk_streaming.cu",
@@ -299,7 +312,41 @@ def phase_kernel_vs_plain(torch, topk):
         cases += 1
     log(f"kernel_vs_plain: topk_scores_streaming {cases} cases ok, "
         f"max_abs_err {worst!r}, near-tie id swaps {swaps}")
+    _tile_independence(torch, topk, gen)
     return worst
+
+
+def _tile_independence(torch, topk, gen):
+    """B5 and B8 (tensor-core tiles of 8 to 64 users): a user's answer is
+    bit for bit the same alone, in a batch of 17 and in one of 64, and
+    from one call to the next."""
+    dev = torch.device("cuda")
+    n = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        table = torch.randn((1_000_003, 64), generator=gen, device=dev).to(
+            dtype)
+        bias = torch.randn((table.shape[0],), generator=gen, device=dev)
+        q = torch.randn((64, 64), generator=gen, device=dev)
+        prep = topk.prepare_items(table, bias, seg_width=128)
+        for name, call in (
+                ("B5", lambda x: topk.topk_scores_streaming(x, prep, k=10)),
+                ("B8", lambda x: topk.topk_scores_pallas(x, table, 10, bias))):
+            batch, again, part = call(q), call(q), call(q[40:57])
+            check(all(torch.equal(a, b) for a, b in zip(batch, again)),
+                  f"{name} {dtype}: two calls differ")
+            for u in (0, 40, 56, 63):
+                alone = call(q[u:u + 1])
+                same = [torch.equal(a[0], b[u]) for a, b in zip(alone, batch)]
+                if 40 <= u < 57:
+                    same += [torch.equal(a[u - 40], b[u])
+                             for a, b in zip(part, batch)]
+                check(all(same), f"{name} {dtype}: user {u} alone differs "
+                      "from the batch")
+            n += 1
+        del table, bias, prep
+    torch.cuda.empty_cache()
+    log(f"kernel_vs_plain: B5 and B8 batch independence and run to run "
+        f"({n} kernel x dtype cases) ok")
 
 
 def _reference(scorer, uids, mod, bias, fetch):
@@ -502,6 +549,29 @@ def phase_serving(torch, topk, big, ModelServer):
     return main_launches, latency
 
 
+def _passes(split, first):
+    """{"score": ms, "merge": ms} per call from a profiler split: the
+    kernel whose name holds ``first`` is the scoring/select pass, the one
+    holding "merge" the merge pass."""
+    if split is None:
+        return None
+    return {"score": sum(v for n, v in split.items() if first in n),
+            "merge": sum(v for n, v in split.items() if "merge" in n)}
+
+
+def _tc_bounds(nbytes, B, I, D, dtype):
+    """B5's and B8's bounds on the route they take: bytes against three
+    TF32 products (f32 tables) or one bf16 product (bf16), and against
+    the f32 FMA rate of the CUDA cores (their earlier route)."""
+    flops = 2.0 * B * I * D
+    bound, by = (_bound(nbytes, 3 * flops, PEAK_FLOP_S["tf32"])
+                 if dtype == "float32"
+                 else _bound(nbytes, flops, PEAK_FLOP_S["bfloat16"]))
+    return {"bound_ms": bound, "bound_by": by,
+            "bound_f32_fma_ms": _bound(nbytes, flops,
+                                       PEAK_FLOP_S["float32"])[0]}
+
+
 def _time_shape(torch, topk, B, I, dtype, iters):
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(B + I)
@@ -510,23 +580,27 @@ def _time_shape(torch, topk, B, I, dtype, iters):
     q = torch.randn((B, 64), generator=gen, device=dev).to(dtype)
     prep = topk.prepare_items(table, bias, seg_width=128)
     k = 10
-    kernel = cuda_ms(lambda: topk.topk_scores_streaming(q, prep, k=k), iters)
+    call = functools.partial(topk.topk_scores_streaming, q, prep, k=k)
+    kernel = cuda_ms(call, iters)
     plain = cuda_ms(lambda: topk.topk_scores_streaming_ref(q, prep, k=k), 3,
                     warmup=1)
-    library = cuda_ms(lambda: torch.topk(q @ table.T + bias, k), 5)
-    prof = device_profile(lambda: topk.topk_scores_streaming(q, prep, k=k), 10)
-    if prof is not None:
-        log("profile_json: " + json.dumps(
-            {"what": f"kernel B={B} I={I} {dtype}", **prof}))
+
+    def lib():
+        return torch.topk(q @ table.T + bias, k)
+
+    library = cuda_ms(lib, 5)
+    dev_ms, split = device_split(call)
     nbytes = (q.numel() * q.element_size() + table.numel()
               * table.element_size() + bias.numel() * 4 + B * k * 8)
-    flops = 2.0 * B * I * 64
-    t_bytes = nbytes / PEAK_BYTES_S * 1e3
-    t_ops = flops / PEAK_FLOP_S[str(dtype).replace("torch.", "")] * 1e3
-    row = {"B": B, "I": I, "D": 64, "dtype": str(dtype).replace("torch.", ""),
-           "k": k, "seg": "128/2", "ms": kernel, "plain_ms": plain,
-           "library_ms": library, "bound_ms": max(t_bytes, t_ops),
-           "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    name = str(dtype).replace("torch.", "")
+    row = {"B": B, "I": I, "D": 64, "dtype": name,
+           "k": k, "seg": "128/2", "ms": kernel, "device_ms": dev_ms,
+           "device_passes_ms": _passes(split, "seg_topk"),
+           "cuda_core_ms": CUDA_CORE_MS.get(
+               ("topk_scores_streaming", B, I, name)),
+           "plain_ms": plain, "library_ms": library,
+           "library_device_ms": device_split(lib)[0],
+           **_tc_bounds(nbytes, B, I, 64, name)}
     del table, bias, q, prep
     torch.cuda.empty_cache()
     return row
@@ -537,10 +611,14 @@ def phase_timing(torch, topk):
             _time_shape(torch, topk, 1, 4_000_000, torch.float32, 20),
             _time_shape(torch, topk, 1024, 1_000_000, torch.bfloat16, 10)]
     for r in rows:
-        log(f"timing: B={r['B']} I={r['I']} {r['dtype']} kernel "
-            f"{r['ms']!r} ms, plain {r['plain_ms']!r} ms, library "
-            f"{r['library_ms']!r} ms, bound {r['bound_ms']!r} ms "
-            f"({r['bound_by']})")
+        log(f"timing: topk_scores_streaming B={r['B']} I={r['I']} "
+            f"{r['dtype']} kernel {r['ms']!r} ms (CUDA-core version: "
+            f"{r['cuda_core_ms']!r} ms; "
+            f"device {r['device_ms']!r} ms, by pass "
+            f"{json.dumps(r['device_passes_ms'])}), plain {r['plain_ms']!r} "
+            f"ms, library {r['library_ms']!r} ms (device "
+            f"{r['library_device_ms']!r} ms), bound {r['bound_ms']!r} ms "
+            f"({r['bound_by']}; f32 FMA {r['bound_f32_fma_ms']!r} ms)")
     log("timing_json: " + json.dumps(rows))
     return rows
 
@@ -1190,9 +1268,14 @@ def _bound(nbytes, ops, peak_ops):
                                  else "operations")
 
 
-def _device_fields(call):
+def _device_fields(call, library=None):
+    """Profiler device time of the kernel call (and its device operations)
+    and, where a library call computes the same function, that call's."""
     ms, ops = device_split(call)
-    return {"device_ms": ms, "device_ops": ops}
+    out = {"device_ms": ms, "device_ops": ops}
+    if library is not None:
+        out["library_device_ms"] = device_split(library)[0]
+    return out
 
 
 def _time_training_kernels(torch, batch, negs, params, cfg, consts):
@@ -1231,11 +1314,12 @@ def _time_training_kernels(torch, batch, negs, params, cfg, consts):
         ops = u.numel() * (I.bit_length() + 1)      # binary-search probes
         bound, by = _bound(nbytes, ops, f32)
         call = functools.partial(sampler.tree_sample_negatives, u, p, cdf, I)
+        lib = functools.partial(lib_b1, u, pos_bn)
         rows.append({"kernel": "tree_sample_negatives", "shape": what,
-                     "ms": cuda_ms(call, 50), **_device_fields(call),
+                     "ms": cuda_ms(call, 50), **_device_fields(call, lib),
                      "plain_ms": cuda_ms(lambda: sampler.tree_sample_ref(
                          u, pos_bn, cdf, I), 5, warmup=1),
-                     "library_ms": cuda_ms(lambda: lib_b1(u, pos_bn), 50),
+                     "library_ms": cuda_ms(lib, 50),
                      "bound_ms": bound, "bound_by": by})
 
     # B2 at each of the step's seven launches (``fast``: bf16 rounding
@@ -1264,14 +1348,17 @@ def _time_training_kernels(torch, batch, negs, params, cfg, consts):
                                             "split": 5}[mode], f32)
         call = functools.partial(scatter.onehot_scatter_add, ids, g, nrows,
                                  mode=mode)
+
+        def lib(nrows=nrows, d=d, lids=lids, rounded=rounded):
+            return torch.zeros((nrows, d), device=dev).index_add_(
+                0, lids, rounded)
+
         rows.append({"kernel": "onehot_scatter_add", "shape": what,
                      "mode": mode, "ids": list(ids.shape),
-                     "ms": cuda_ms(call, 50), **_device_fields(call),
+                     "ms": cuda_ms(call, 50), **_device_fields(call, lib),
                      "plain_ms": cuda_ms(lambda: scatter.scatter_add_ref(
                          ids, g, nrows, mode), 20),
-                     "library_ms": cuda_ms(lambda: torch.zeros(
-                         (nrows, d), device=dev).index_add_(0, lids, rounded),
-                         50),
+                     "library_ms": cuda_ms(lib, 50),
                      "bound_ms": bound, "bound_by": by})
 
     tables = [params["temporal"][k].detach() for k in ("hour", "day",
@@ -1287,12 +1374,12 @@ def _time_training_kernels(torch, batch, negs, params, cfg, consts):
     nbytes = ids.numel() * 4 + bag.numel() * 4 + B * dt * 4
     bound, by = _bound(nbytes, 3 * B * dt, f32)
     call = functools.partial(temporal_sum.fused_lookup_sum, ids, tables)
+    lib = functools.partial(F.embedding_bag, bag_ids, bag, mode="sum")
     rows.append({"kernel": "fused_lookup_sum", "shape": "step",
-                 "ms": cuda_ms(call, 50), **_device_fields(call),
+                 "ms": cuda_ms(call, 50), **_device_fields(call, lib),
                  "plain_ms": cuda_ms(lambda: temporal_sum.lookup_sum_ref(
                      ids, tables), 50),
-                 "library_ms": cuda_ms(lambda: F.embedding_bag(
-                     bag_ids, bag, mode="sum"), 50),
+                 "library_ms": cuda_ms(lib, 50),
                  "bound_ms": bound, "bound_by": by})
     return rows
 
@@ -1458,7 +1545,8 @@ def phase_training_timing(torch):
     for r in rows:
         log(f"timing: {r['kernel']} [{r['shape']}] kernel {r['ms']!r} ms "
             f"(device {r['device_ms']!r} ms), plain {r['plain_ms']!r} ms, "
-            f"library {r['library_ms']!r} ms, off path "
+            f"library {r['library_ms']!r} ms (device "
+            f"{r.get('library_device_ms')!r} ms), off path "
             f"{r.get('off_path_ms')!r} ms, bound {r['bound_ms']!r} ms "
             f"({r['bound_by']})")
     log("training_timing_json: " + json.dumps(rows))
@@ -1968,14 +2056,18 @@ def phase_timing_slice4(torch, topk):
     for B in (64, 1):
         q = qs[:B]
         call = functools.partial(topk.topk_scores_streaming_int8, q, prep, k)
-        lib = None
+        lib = lib_dev = None
         if B > 16:                        # torch._int_mm takes > 16 rows
             kp = -(-K // 8) * 8
             q8 = F.pad(topk._quantize_queries(q, prep), (0, kp - K))
             t8 = F.pad(prep.table, (0, kp - K))
+
+            def lib_call():
+                return torch.topk(torch._int_mm(q8, t8.t()), k)
+
             try:
-                lib = cuda_ms(lambda: torch.topk(torch._int_mm(q8, t8.t()), k),
-                              10)
+                lib = cuda_ms(lib_call, 10)
+                lib_dev = device_split(lib_call)[0]
             except RuntimeError as e:
                 log(f"timing: B6 library call refused ({e!r})")
             del q8, t8
@@ -1986,21 +2078,29 @@ def phase_timing_slice4(torch, topk):
                      "ms": cuda_ms(call, 20), **_device_fields(call),
                      "plain_ms": cuda_ms(lambda: topk.topk_scores_streaming_int8_ref(
                          q, prep, k), 3, warmup=1),
-                     "library_ms": lib, "bound_ms": bound, "bound_by": by})
+                     "library_ms": lib, "library_device_ms": lib_dev,
+                     "bound_ms": bound, "bound_by": by})
     del prep
     torch.cuda.empty_cache()
     q, k = qs, 10
     nbytes = I * D * 4 + I * 4 + 64 * D * 4
-    bound, by = _bound(nbytes + 64 * k * 8, 2.0 * 64 * I * D, f32)
     call = functools.partial(topk.topk_scores_pallas, q, items, k, bias)
+
+    def lib_b8():
+        return torch.topk(q @ items.T + bias, k)
+
+    dev_ms, split = device_split(call)
     rows.append({"kernel": "topk_scores_pallas",
                  "shape": f"B=64 I={I} D={D} f32 k={k}",
-                 "ms": cuda_ms(call, 10), **_device_fields(call),
+                 "ms": cuda_ms(call, 10), "device_ms": dev_ms,
+                 "device_passes_ms": _passes(split, "exact_tc"),
+                 "cuda_core_ms": CUDA_CORE_MS[
+                     ("topk_scores_pallas", 64, I, "float32")],
                  "plain_ms": cuda_ms(lambda: topk.topk_scores_pallas_ref(
                      q, items, k, bias), 3, warmup=1),
-                 "library_ms": cuda_ms(lambda: torch.topk(
-                     q @ items.T + bias, k), 5),
-                 "bound_ms": bound, "bound_by": by})
+                 "library_ms": cuda_ms(lib_b8, 5),
+                 "library_device_ms": device_split(lib_b8)[0],
+                 **_tc_bounds(nbytes + 64 * k * 8, 64, I, D, "float32")})
     bound, by = _bound(nbytes + 64 * (I // 128) * 4, 2.0 * 64 * I * D, f32)
     call = functools.partial(topk._segmax_cuda, q, items, bias, 2048, 128)
     rows.append({"kernel": "topk_scores_segmented",
@@ -2021,17 +2121,23 @@ def phase_timing_slice4(torch, topk):
     bound, by = _bound(n * 4 + n * 64 * 4 + table.numel() * 4, 0, f32)
     call = functools.partial(gather.gather_rows, table, ids)
     flat = ids.reshape(-1)
+    lib = functools.partial(torch.index_select, table, 0, flat)
     rows.append({"kernel": "gather_rows", "shape": f"[3706, 64] f32 x {n} ids",
-                 "ms": cuda_ms(call, 50), **_device_fields(call),
+                 "ms": cuda_ms(call, 50), **_device_fields(call, lib),
                  "plain_ms": cuda_ms(lambda: gather.gather_rows_ref(table, ids),
                                      50),
-                 "library_ms": cuda_ms(lambda: torch.index_select(table, 0,
-                                                                  flat), 50),
+                 "library_ms": cuda_ms(lib, 50),
                  "bound_ms": bound, "bound_by": by})
     for r in rows:
+        was = (f" (CUDA-core version: {r['cuda_core_ms']!r} ms; device "
+               f"by pass "
+               f"{json.dumps(r['device_passes_ms'])}, f32 FMA bound "
+               f"{r['bound_f32_fma_ms']!r} ms)" if "cuda_core_ms" in r
+               else "")
         log(f"timing: {r['kernel']} [{r['shape']}] kernel {r['ms']!r} ms "
-            f"(device {r['device_ms']!r} ms), plain {r['plain_ms']!r} ms, "
-            f"library {r['library_ms']!r} ms, bound {r['bound_ms']!r} ms "
+            f"(device {r['device_ms']!r} ms){was}, plain {r['plain_ms']!r} "
+            f"ms, library {r['library_ms']!r} ms (device "
+            f"{r.get('library_device_ms')!r} ms), bound {r['bound_ms']!r} ms "
             f"({r['bound_by']})")
     log("slice4_timing_json: " + json.dumps(rows))
     return rows

@@ -17,29 +17,35 @@
 //   block), or 0 with one block.
 //
 // What bounds it on this card: at the serving shape (B=64 users, 4M items,
-// D=64, f32 table) the product is 3.3e10 FLOP against 1.04 GB of table:
-// 0.49 ms at the 67 TFLOP/s f32 CUDA-core peak vs 0.31 ms at 3.35 TB/s, so
-// it is compute-bound in f32; at B=1 it is bound by the table bytes.
+// D=64, f32 table) the 1.04 GB table takes 0.31 ms at 3.35 TB/s, and the
+// split-TF32 product (three TF32 products, 1.0e11 operations) 0.20 ms at
+// 495 TFLOP/s: bound by the table's bytes, at every batch size up to 64.
+// At B=1024 x 1M in bf16 the product (0.13 ms at 989 TFLOP/s) bounds it.
 //
-// Design (simple and right first):
-//   pass 1 (seg_topk_kernel): one block scores a chunk of 128 items against
-//     a tile of TU users with a register-tiled f32 FMA product (operands
-//     staged through shared memory in 32-deep slices of D, so the table is
-//     read once per user tile and the [B, I] score matrix never reaches
-//     device memory).  The chunk's scores go to shared memory; one warp
-//     per (user, segment) reduces them to the segment's top seg_top and
-//     writes each as a 64-bit key (monotone f32 bits << 32 | ~pos), pos =
+// Design:
+//   pass 1 (seg_topk_tc_kernel): persistent blocks, each holding one tile
+//     of TU users (8, 16, 32 or 64: the smallest that covers B, within
+//     the shared memory) and walking the 128-item tiles walker, walker +
+//     nwalk, ...  topk_common.cuh's tensor-core tile scores each tile
+//     (items on the M side, users on the N side; split-TF32 mma.sync for
+//     f32, bf16 mma.sync for bf16) while cp.async copies the next tile
+//     into the second stage of the ring, so table loads overlap the
+//     product.  The tile's scores land in shared memory; four threads a
+//     user each take the top two of 32 items, the chunks of a segment
+//     merge by shuffles, and the segment's top seg_top are written each
+//     as a 64-bit key (monotone f32 bits << 32 | ~pos), pos =
 //     ((block * seg_top + rank) * nseg + segment) * seg_width + offset, so
 //     a larger key is exactly a better candidate under (value desc, then
-//     merge order) and the id is recovered from pos.
-//     Blocks of one item chunk over consecutive user tiles run next to
-//     each other, so a chunk is read from device memory about once and
-//     then from L2.  Blocks are independent: nothing carries between them,
-//     unlike the TPU grid's running top-k scratch.
+//     merge order) and the id is recovered from pos.  Blocks of one
+//     walker over the user tiles read the same item tiles at the same
+//     time, so the table comes from device memory about once and then
+//     from L2.  Nothing carries between blocks, unlike the TPU grid's
+//     running top-k scratch; every key has its own slot.
 //   pass 2 (merge_topk_kernel): one block per user selects the k largest
 //     candidate keys by an MSB-first radix select over the 64-bit keys
-//     (8-bit digits, stopping as soon as the boundary bin is taken whole;
-//     topk_common.cuh, shared with the other top-k kernels),
+//     (8-bit digits, stopping as soon as the boundary bin is taken whole,
+//     eight loads in flight a thread; topk_common.cuh, shared with the
+//     other top-k kernels),
 //     gathers the <= 64 winners in shared memory and ranks them.  When
 //     fewer than k candidates exist, the block also takes the largest key
 //     of the blocks before the last for the empty slots' id.
@@ -49,9 +55,8 @@
 
 namespace {
 
-using ncf::kChunk;
+namespace tc = ncf::tc;
 using ncf::kNegInf;
-using ncf::kThreads;
 #define NCF_MINUS_INF __int_as_float(0xff800000)
 constexpr int kMergeThreads = 512;
 constexpr int kMaxK = 64;
@@ -65,69 +70,76 @@ __device__ __forceinline__ float key_value(unsigned long long key) {
   return ncf::unmono_f32((unsigned int)(key >> 32));
 }
 
-template <typename T, int TU, int UM, int IM>
-__global__ void __launch_bounds__(kThreads)
-seg_topk_kernel(const T* __restrict__ q, const T* __restrict__ table,
-                const float* __restrict__ bias, int B, int D, int n_rows,
-                int seg_width, int seg_top, int nseg, int n_utiles,
-                int ncand, unsigned long long* __restrict__ keys) {
-  constexpr int SSTR = kChunk + 1;
-  constexpr int STAGE = ncf::stage_floats<TU>();
-  constexpr int SCORES = TU * SSTR;
-  __shared__ float smem[STAGE > SCORES ? STAGE : SCORES];
-  float* S = smem;                // [TU][SSTR], reused after the product
+template <typename T, int TU>
+__global__ void __launch_bounds__(tc::kThreads)
+seg_topk_tc_kernel(const T* __restrict__ q, const T* __restrict__ table,
+                   const float* __restrict__ bias, int B, int D, int n_rows,
+                   int seg_width, int seg_top, int nseg, int n_utiles,
+                   int ncand, int mode, unsigned long long* __restrict__ keys) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const tc::Geom g = tc::geom<T, T, TU>(D);
+  unsigned char* qs = smem;
+  unsigned char* ring = smem + g.q_bytes;
 
   const int tid = threadIdx.x;
   const int utile = blockIdx.x % n_utiles;
-  const long long chunk = blockIdx.x / n_utiles;
-  const long long row0 = chunk * kChunk;
+  const int walker = blockIdx.x / n_utiles;
+  const int nwalk = gridDim.x / n_utiles;
   const int u0 = utile * TU;
-
-  // scores + bias; padded rows out of reach
-  ncf::score_tile<T, T, TU, UM, IM>(q, table, bias, B, D, n_rows, u0, row0,
-                                    NCF_MINUS_INF, smem, S, SSTR);
+  tc::stage_queries<T, TU>(q, B, D, u0, g, qs);
   __syncthreads();
 
-  // one warp per (user, segment): top-seg_top by (value desc, offset asc)
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int segs = kChunk / seg_width;
-  const int per = seg_width / 32;
-  const long long nseg_total = ((long long)n_rows + seg_width - 1) / seg_width;
-  for (int p = warp; p < TU * segs; p += kThreads / 32) {
-    int ul = p / segs;
-    int s = p % segs;
-    int u = u0 + ul;
-    long long gseg = row0 / seg_width + s;
-    if (u >= B || gseg >= nseg_total) continue;  // warp-uniform
-    float v1 = NCF_MINUS_INF, v2 = NCF_MINUS_INF;
-    int o1 = 0x7FFFFFFF, o2 = 0x7FFFFFFF;
-    for (int e = 0; e < per; ++e) {
-      int off = lane + e * 32;
-      ncf::insert2(S[ul * SSTR + s * seg_width + off], off, v1, o1, v2, o2);
-    }
+  const unsigned int nseg_total =
+      (unsigned int)(((long long)n_rows + seg_width - 1) / seg_width);
+  const int chunks = seg_width / 32;     // 32-item chunks of a segment
+  // thread (user ul, 32-item chunk c): TU * 4 threads, whole warps
+  const int ul = tid >> 2, c = tid & 3;
+  // scores + bias, padded rows out of reach; then each thread takes its
+  // chunk's top two by (value desc, offset asc): offsets ascend, so a
+  // later equal value never displaces an earlier one; the chunks of a
+  // segment (neighbouring lanes) merge by shuffles
+  tc::stream_tiles<T, T, TU>(
+      table, bias, D, n_rows, walker, nwalk, mode, NCF_MINUS_INF, g, qs, ring,
+      [&](const float* S, long long row0) {
+        if (ul >= TU) return;                    // warp-uniform
+        const float* row = S + ul * tc::kSStride + tc::score_slot(c * 32);
+        float v1 = NCF_MINUS_INF, v2 = NCF_MINUS_INF;
+        int o1 = 0x7FFFFFFF, o2 = 0x7FFFFFFF;
 #pragma unroll
-    for (int x = 16; x > 0; x >>= 1) {
-      float w1 = __shfl_xor_sync(0xffffffffu, v1, x);
-      int p1 = __shfl_xor_sync(0xffffffffu, o1, x);
-      float w2 = __shfl_xor_sync(0xffffffffu, v2, x);
-      int p2 = __shfl_xor_sync(0xffffffffu, o2, x);
-      ncf::insert2(w1, p1, v1, o1, v2, o2);
-      ncf::insert2(w2, p2, v1, o1, v2, o2);
-    }
-    if (lane < seg_top) {
-      float v = lane == 0 ? v1 : v2;
-      int o = lane == 0 ? o1 : o2;
-      unsigned long long key = 0ull;  // empty candidate
-      if (v > kNegInf) {
-        const unsigned int blk = (unsigned int)(gseg / nseg);
-        const unsigned int sib = (unsigned int)(gseg % nseg);
-        key = make_key(v, ((blk * seg_top + lane) * nseg + sib) * seg_width
-                              + (unsigned int)o);
-      }
-      keys[(long long)u * ncand + gseg * seg_top + lane] = key;
-    }
-  }
+        for (int i = 0; i < 32; ++i) {
+          const float v = row[i];
+          if (v > v1) {
+            v2 = v1; o2 = o1; v1 = v; o1 = c * 32 + i;
+          } else if (v > v2) {
+            v2 = v; o2 = c * 32 + i;
+          }
+        }
+        for (int x = 1; x < chunks; x <<= 1) {
+          const float w1 = __shfl_xor_sync(0xffffffffu, v1, x);
+          const int p1 = __shfl_xor_sync(0xffffffffu, o1, x);
+          const float w2 = __shfl_xor_sync(0xffffffffu, v2, x);
+          const int p2 = __shfl_xor_sync(0xffffffffu, o2, x);
+          ncf::insert2(w1, p1, v1, o1, v2, o2);
+          ncf::insert2(w2, p2, v1, o1, v2, o2);
+        }
+        const int u = u0 + ul;
+        const unsigned int gseg =                // 4 / chunks segments a tile
+            (unsigned int)(row0 / tc::kItems) * (4 / chunks) + c / chunks;
+        if (c % chunks != 0 || u >= B || gseg >= nseg_total) return;
+        const unsigned int blk = gseg / (unsigned int)nseg;
+        const unsigned int sib = gseg % (unsigned int)nseg;
+        unsigned long long* out =
+            keys + (long long)u * ncand + (long long)gseg * seg_top;
+        for (int r = 0; r < seg_top; ++r) {
+          const float v = r == 0 ? v1 : v2;
+          const unsigned int off = (unsigned int)(r == 0 ? o1 : o2) &
+                                   (unsigned int)(seg_width - 1);
+          out[r] = v > kNegInf  // else an empty candidate
+                       ? make_key(v, ((blk * seg_top + r) * nseg + sib) *
+                                         seg_width + off)
+                       : 0ull;
+        }
+      });
 }
 
 __global__ void __launch_bounds__(kMergeThreads)
@@ -141,7 +153,8 @@ merge_topk_kernel(const unsigned long long* __restrict__ keys, int ncand,
   const int tid = threadIdx.x;
   const unsigned long long* kb = keys + (long long)blockIdx.x * ncand;
   if (tid == 0) s_best = 0ull;
-  const int n = ncf::select_top_keys<kMergeThreads, kMaxK>(kb, ncand, k, sel);
+  const int n =
+      ncf::select_top_keys<kMergeThreads, kMaxK, 8>(kb, ncand, k, sel);
   float* ov = out_vals + (long long)blockIdx.x * k;
   int* oi = out_ids + (long long)blockIdx.x * k;
   if (tid < n) {
@@ -170,26 +183,62 @@ merge_topk_kernel(const unsigned long long* __restrict__ keys, int ncand,
   }
 }
 
+template <typename T, int TU>
+cudaError_t launch_tu(const void* q, const void* table, const float* bias,
+                      int B, int D, int n_rows, int seg_width, int seg_top,
+                      int nseg, int ncand, unsigned long long* keys,
+                      cudaStream_t stream) {
+  static const cudaError_t attr =
+      tc::allow_max_smem((const void*)seg_topk_tc_kernel<T, TU>);
+  if (attr != cudaSuccess) return attr;
+  const size_t smem = tc::ring_smem_bytes<T, T, TU>(D);
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, seg_topk_tc_kernel<T, TU>, tc::kThreads, smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const int n_utiles = (B + TU - 1) / TU;
+  const long long ntiles = ((long long)n_rows + tc::kItems - 1) / tc::kItems;
+  long long nwalk = (long long)per_sm * sms / n_utiles;
+  if (nwalk > ntiles) nwalk = ntiles;
+  if (nwalk < 1) nwalk = 1;
+  const int mode = tc::copy_mode(table, D, (int)sizeof(T));
+  seg_topk_tc_kernel<T, TU><<<(unsigned)(nwalk * n_utiles), tc::kThreads,
+                              smem, stream>>>(
+      (const T*)q, (const T*)table, bias, B, D, n_rows, seg_width, seg_top,
+      nseg, n_utiles, ncand, mode, keys);
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t launch_pass1(const void* q, const void* table, const float* bias,
                          int B, int D, int n_rows, int seg_width, int seg_top,
                          int nseg, int ncand, unsigned long long* keys,
                          cudaStream_t stream) {
-  const long long nchunks = ((long long)n_rows + kChunk - 1) / kChunk;
-  if (B <= 8) {
-    const int n_utiles = (B + 7) / 8;
-    seg_topk_kernel<T, 8, 1, 4><<<(unsigned)(nchunks * n_utiles), kThreads,
-                                  0, stream>>>(
-        (const T*)q, (const T*)table, bias, B, D, n_rows, seg_width, seg_top,
-        nseg, n_utiles, ncand, keys);
-  } else {
-    const int n_utiles = (B + 63) / 64;
-    seg_topk_kernel<T, 64, 4, 8><<<(unsigned)(nchunks * n_utiles), kThreads,
-                                   0, stream>>>(
-        (const T*)q, (const T*)table, bias, B, D, n_rows, seg_width, seg_top,
-        nseg, n_utiles, ncand, keys);
+  int optin = 0;
+  const cudaError_t err = tc::smem_optin(&optin);
+  if (err != cudaSuccess) return err;
+  const int tu = tc::pick_user_tile(B, optin, [&](int t) {
+    return t == 64 ? tc::ring_smem_bytes<T, T, 64>(D)
+           : t == 32 ? tc::ring_smem_bytes<T, T, 32>(D)
+           : t == 16 ? tc::ring_smem_bytes<T, T, 16>(D)
+                     : tc::ring_smem_bytes<T, T, 8>(D);
+  });
+  if (tu == 0) return cudaErrorInvalidValue;
+#define NCF_LAUNCH(TU_)                                                     \
+  return launch_tu<T, TU_>(q, table, bias, B, D, n_rows, seg_width, seg_top, \
+                           nseg, ncand, keys, stream)
+  switch (tu) {
+    case 64: NCF_LAUNCH(64);
+    case 32: NCF_LAUNCH(32);
+    case 16: NCF_LAUNCH(16);
+    default: NCF_LAUNCH(8);
   }
-  return cudaGetLastError();
+#undef NCF_LAUNCH
 }
 
 }  // namespace
@@ -210,7 +259,8 @@ int ncf_topk_streaming(const void* q, const void* table, const float* bias,
   if (B <= 0 || D <= 0 || n_rows <= 0 || num_items <= 0 || k <= 0 ||
       k > kMaxK || (seg_top != 1 && seg_top != 2) || nseg <= 0 ||
       nblocks <= 0 ||
-      (seg_width != 32 && seg_width != 64 && seg_width != 128))
+      (seg_width != 32 && seg_width != 64 && seg_width != 128) ||
+      D > tc::kMaxD)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const int ncand = (int)(((long long)n_rows + seg_width - 1) / seg_width)

@@ -22,6 +22,11 @@ tensors:
   (name kept from the reference, where XLA ran it).
 - ``rescore_exact``     — exact re-score + re-sort of candidates.
 
+B5 and B8 score on the tensor cores (``csrc/topk_common.cuh``: split-TF32
+``mma.sync`` for f32 tables, bf16 for bf16, the table streamed through a
+``cp.async`` ring) and take rows of at most 128 values (``ValueError``
+above, on CUDA tensors).
+
 Ties: the reference's ``lax.top_k`` breaks ties to the lower index and
 ``torch.topk`` promises nothing, so the plain paths sort stably.  The
 streaming functions order equal values as the reference's running merge
@@ -53,6 +58,7 @@ from ncf_tpu_torch.ops import _kernels
 
 NEG_INF = -3.0e38
 _MAX_STREAM_K = 64     # the merge keeps at most 64 winners per user
+_MAX_TC_DIM = 128      # widest row B5's and B8's tensor-core tile stages
 _MAX_SCRATCH_BYTES = 1 << 30
 _STREAM_VMEM_BUDGET = 12 * 1024 * 1024   # the reference's block sizing
 
@@ -362,6 +368,9 @@ def _streaming_cuda(q, table, bias, num_items, k, seg_width, seg_top,
     if seg_width not in (32, 64, 128):
         raise ValueError(f"streaming kernel takes seg_width 32/64/128, "
                          f"got {seg_width}")
+    if q.shape[1] > _MAX_TC_DIM:
+        raise ValueError(f"streaming kernel takes dim <= {_MAX_TC_DIM}, "
+                         f"got {q.shape[1]}")
     dev = table.device
     if q.device != dev or (bias is not None and bias.device != dev):
         raise ValueError("queries, table and bias must share one device")
@@ -769,10 +778,16 @@ def _exact_cuda(q, items, bias, k, early):
     B, D = q.shape
     I = items.shape[0]
     dev = items.device
+    if D > _MAX_TC_DIM:
+        raise ValueError(f"exact kernel takes dim <= {_MAX_TC_DIM}, got {D}")
     if B == 0:
         return (torch.empty((0, k), dtype=torch.float32, device=dev),
                 torch.empty((0, k), dtype=torch.int32, device=dev))
-    ncand = -(-I // 2048) * k             # the kernel's 2048-item chunks
+    # blocks walking the 128-item tiles per user tile, one a multiprocessor;
+    # each leaves k keys per user
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    nwalk = max(1, min(-(-I // 128), sms))
+    ncand = nwalk * k
     rows = max(1, min(B, _MAX_SCRATCH_BYTES // (ncand * 8)))
     keys = torch.empty((rows, ncand), dtype=torch.int64, device=dev)
     vals = torch.empty((B, k), dtype=torch.float32, device=dev)
@@ -784,8 +799,9 @@ def _exact_cuda(q, items, bias, k, early):
             _kernels.launch(
                 *EXACT_ENTRY, q[start].data_ptr(), items.data_ptr(),
                 bias.data_ptr() if bias is not None else None, dtype_code,
-                n, D, I, k, early, keys.data_ptr(), vals[start].data_ptr(),
-                ids[start].data_ptr(), _kernels.stream_of(items))
+                n, D, I, k, early, nwalk, keys.data_ptr(),
+                vals[start].data_ptr(), ids[start].data_ptr(),
+                _kernels.stream_of(items))
             topk_scores_pallas.launches.add()
     return vals, ids
 
@@ -818,7 +834,7 @@ def topk_scores_pallas(
 
 
 topk_scores_pallas.launches = _kernels.LaunchCounter()
-EXACT_ENTRY = ("topk_exact", "ncf_topk_exact", "ppp" + "i" * 6 + "pppp")
+EXACT_ENTRY = ("topk_exact", "ncf_topk_exact", "ppp" + "i" * 7 + "pppp")
 
 
 # ------------------------------------------------ segmented max (B9)

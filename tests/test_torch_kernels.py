@@ -20,6 +20,8 @@ Tolerances:
 - exact top-k (B8) and the segmented top-k (B9, after its exact rescore):
   as the streaming top-k, with the queries in f32 (both keep them so);
   on small-integer data, whose sums are exact, equal;
+- B5 and B8 (tensor-core tiles): a user's answer equal bit for bit alone
+  and inside a batch, and from one call to the next;
 - fused tower (B4f, B4b): identical dropout zeros; outputs within 1e-4
   (relative, plus 1e-4) for at least 95% of the elements and within 5e-2
   of the largest magnitude for all: f32 sums run in another order, and
@@ -70,17 +72,25 @@ def _assert_close(kv, ki, rv, ri, q, table, bias, cast_q=True):
     assert bool(((sk - sr).abs() <= tol)[swap].all())
 
 
+# batch sizes on both sides of every user tile (8, 16, 32, 64) of the
+# tensor-core kernels; D 61 and 40 are padded to the product's depth and
+# 61 f32 rows are not 16-byte aligned; 100,003 items divide no tile
+_TILE_BS = (1, 7, 8, 9, 16, 17, 63, 64, 65, 300)
+_DIMS = (64, 61, 40)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("B", (1, 7, 64, 300))
+@pytest.mark.parametrize("B", _TILE_BS)
 @pytest.mark.parametrize("dtype", ("float32", "bfloat16"))
 @pytest.mark.parametrize("seg", ((128, 2), (64, 1), (32, 2)))
-def test_streaming_kernel_matches_plain_version(cuda, B, dtype, seg):
-    gen = torch.Generator(device=cuda).manual_seed(B)
+@pytest.mark.parametrize("D", _DIMS)
+def test_streaming_kernel_matches_plain_version(cuda, B, dtype, seg, D):
+    gen = torch.Generator(device=cuda).manual_seed(B + D)
     I = 100_003
-    table = torch.randn((I, 64), generator=gen, device=cuda).to(
+    table = torch.randn((I, D), generator=gen, device=cuda).to(
         getattr(torch, dtype))
     bias = torch.randn((I,), generator=gen, device=cuda)
-    q = torch.randn((B, 64), generator=gen, device=cuda)
+    q = torch.randn((B, D), generator=gen, device=cuda)
     for b in (bias, None):
         for k in (1, 10, 64):
             args = dict(k=k, bias=b, seg_width=seg[0], seg_top=seg[1])
@@ -136,6 +146,10 @@ def test_streaming_kernel_rejects_what_it_does_not_take(cuda):
         topk.topk_scores_streaming(q, t, k=5, seg_width=256)
     with pytest.raises(TypeError):
         topk.topk_scores_streaming(q.half(), t.half(), k=5)
+    wide = torch.zeros((500, 129), device=cuda)
+    with pytest.raises(ValueError, match="dim <= 128"):
+        topk.topk_scores_streaming(torch.zeros((2, 129), device=cuda), wide,
+                                   k=5)
 
 
 @pytest.mark.cuda
@@ -383,15 +397,16 @@ def test_int8_kernel_ties_padded_rows_and_fill(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B", (1, 9, 64))
+@pytest.mark.parametrize("B", _TILE_BS)
 @pytest.mark.parametrize("dtype", ("float32", "bfloat16"))
-def test_exact_kernel_matches_plain_version(cuda, B, dtype):
-    gen = torch.Generator(device=cuda).manual_seed(B)
+@pytest.mark.parametrize("D", _DIMS)
+def test_exact_kernel_matches_plain_version(cuda, B, dtype, D):
+    gen = torch.Generator(device=cuda).manual_seed(B + D)
     I = 100_003
-    table = torch.randn((I, 64), generator=gen, device=cuda).to(
+    table = torch.randn((I, D), generator=gen, device=cuda).to(
         getattr(torch, dtype))
     bias = torch.randn((I,), generator=gen, device=cuda)
-    q = torch.randn((B, 64), generator=gen, device=cuda)
+    q = torch.randn((B, D), generator=gen, device=cuda)
     for b in (bias, None):
         for k in (1, 10, 64, 256):
             kv, ki = topk.topk_scores_pallas(q, table, k, b)
@@ -413,6 +428,78 @@ def test_exact_kernel_ties_and_empty_slots(cuda):
                                                block_items=block)
             assert torch.equal(got[0], want[0]) and torch.equal(got[1],
                                                                  want[1])
+
+
+@pytest.mark.cuda
+def test_exact_kernel_splits_large_batches(cuda, monkeypatch):
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    q = torch.randn((70, 64), generator=gen, device=cuda)
+    items = torch.randn((20_000, 64), generator=gen, device=cuda)
+    whole = topk.topk_scores_pallas(q, items, 10)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    ncand = min(-(-20_000 // 128), sms) * 10
+    monkeypatch.setattr(topk, "_MAX_SCRATCH_BYTES", 16 * ncand * 8)
+    n0 = topk.topk_scores_pallas.launches.value
+    split = topk.topk_scores_pallas(q, items, 10)
+    assert topk.topk_scores_pallas.launches.value == n0 + 5   # 70 / 16
+    assert torch.equal(split[0], whole[0]) and torch.equal(split[1], whole[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ("streaming", "exact"))
+@pytest.mark.parametrize("dtype", ("float32", "bfloat16"))
+def test_tensor_core_kernels_serve_a_user_alone_as_in_a_batch(cuda, kernel,
+                                                              dtype):
+    """A user's answer is bit for bit the same served alone (user tile 8)
+    as inside a batch of 64 (tile 64) or 17 (tile 32), and two calls give
+    the same bits."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    I = 300_001
+    table = torch.randn((I, 64), generator=gen, device=cuda).to(
+        getattr(torch, dtype))
+    bias = torch.randn((I,), generator=gen, device=cuda)
+    q = torch.randn((64, 64), generator=gen, device=cuda)
+    if kernel == "streaming":
+        prep = topk.prepare_items(table, bias, seg_width=128)
+
+        def call(x):
+            return topk.topk_scores_streaming(x, prep, k=10)
+    else:
+        def call(x):
+            return topk.topk_scores_pallas(x, table, 10, bias)
+    batch = call(q)
+    again = call(q)
+    assert torch.equal(batch[0], again[0]) and torch.equal(batch[1], again[1])
+    part = call(q[40:57])
+    for u in (0, 5, 40, 47, 56, 63):
+        alone = call(q[u:u + 1])
+        assert torch.equal(alone[0][0], batch[0][u])
+        assert torch.equal(alone[1][0], batch[1][u])
+        if 40 <= u < 57:
+            assert torch.equal(part[0][u - 40], batch[0][u])
+            assert torch.equal(part[1][u - 40], batch[1][u])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", (100, 128))
+@pytest.mark.parametrize("dtype", ("float32", "bfloat16"))
+def test_tensor_core_kernels_take_rows_up_to_128(cuda, D, dtype):
+    """The widest rows B5 and B8 take: their launchers halve the user tile
+    until the ring (and B8's candidate buffers, k up to 256) fit."""
+    gen = torch.Generator(device=cuda).manual_seed(D)
+    I = 50_001
+    table = torch.randn((I, D), generator=gen, device=cuda).to(
+        getattr(torch, dtype))
+    bias = torch.randn((I,), generator=gen, device=cuda)
+    for B in (9, 64):
+        q = torch.randn((B, D), generator=gen, device=cuda)
+        kv, ki = topk.topk_scores_streaming(q, table, k=10, bias=bias)
+        rv, ri = topk.topk_scores_streaming_ref(q, table, k=10, bias=bias)
+        _assert_close(kv, ki, rv, ri, q, table, bias)
+        for k in (10, 256):
+            kv, ki = topk.topk_scores_pallas(q, table, k, bias)
+            rv, ri = topk.topk_scores_pallas_ref(q, table, k, bias)
+            _assert_close(kv, ki, rv, ri, q, table, bias, cast_q=False)
 
 
 @pytest.mark.cuda
@@ -469,6 +556,9 @@ def test_slice4_kernels_refuse_what_they_do_not_take(cuda):
         topk.topk_scores_pallas(q, items, 257)
     with pytest.raises(TypeError):
         topk.topk_scores_pallas(q, items.double(), 5)
+    with pytest.raises(ValueError, match="dim <= 128"):
+        topk.topk_scores_pallas(torch.zeros((2, 129), device=cuda),
+                                torch.zeros((500, 129), device=cuda), 5)
     with pytest.raises(ValueError, match="seg_width"):
         topk.topk_scores_segmented(q, items, 5, seg_width=8)
 
