@@ -12,8 +12,11 @@ Phases (each asserts; any failure exits non-zero and prints no result):
    inputs: the streaming top-k (B5) at the serving shapes, with tied
    scores and empty slots, and B5's and B8's answers for a user alone
    equal bit for bit to the same user's inside batches of 17 and 64; the
-   sampler (B1), scatter-add (B2) and temporal sum (B3) at the training
-   step's shapes and at edge shapes;
+   sampler (B1) and temporal sum (B3) at the training step's shapes and
+   at edge shapes; the scatter-add (B2) bit for bit against its plain
+   version run on the CPU and against a second call, in every mode and
+   gradient dtype, at the step's shapes and at edge shapes (no ids, every
+   id out of range, one id 81,920 times, a Zipf skew);
    the fused tower's forward (B4f) and backward (B4b) at the three tower
    shapes of the training steps, with dropout 0 and 0.2, and at edge
    shapes (identical dropout zeros); the int8 streaming top-k (B6) bit for
@@ -44,7 +47,8 @@ Phases (each asserts; any failure exits non-zero and prints no result):
    their earlier CUDA-core versions) at
    the serving shapes, beside the least time the card could take (B5, B6,
    B8, B9 at 4M items, B7 at NeuMF's scan; B5 and B8 against their
-   tensor-core route and against the f32 FMA rate of their old one);
+   tensor-core route and against the f32 FMA rate of their old one; B6's
+   device time per pass beside its ``__dp4a`` version's);
 6. the demo checkpoint served on the card against the port's CPU answers;
 7. training at full width, config A: ``configs/advanced_ncf_ml1m.yaml``
    as shipped (6040 users x 3706 items, batch 16384, bf16 compute, dropout
@@ -56,6 +60,11 @@ Phases (each asserts; any failure exits non-zero and prints no result):
    and ``configs/advanced_ncf_sequence.yaml`` (sequence, joint), 30 steps
    each with the train split's ``recent_history(50)`` (B2 eight times a
    step), and a few steps with causal per-example histories in the batch;
+   then determinism: two runs of two steps from one parameter state and
+   one generator seed end in equal parameters and Adam state, bit for
+   bit, for config A (joint and independent) and config B (quality), and
+   one step under ``torch.use_deterministic_algorithms(True,
+   warn_only=True)`` logs the warnings PyTorch raises for the step;
 8. three full-width steps in f32 with dropout 0 on the card and through
    the port on the CPU, from the same params and negatives, with the
    plain tower and with ``fused_tower: on`` (the kernels on the card,
@@ -70,7 +79,11 @@ Phases (each asserts; any failure exits non-zero and prints no result):
    ``off`` in both candidate modes and for config B; each training
    kernel's time (CUDA events, and device time from the profiler) beside
    its plain version, its library call (or, for B4, the plain layers of
-   ``off``) and its bound.
+   ``off``) and its bound (B2 with its sort's device time and, for the
+   item table, its atomic version's time).
+
+Without a card, or run alone in a directory without the package, it
+prints why on standard output and standard error and exits 2.
 
 The last two lines of standard output are the ``kernels`` JSON object and
 ``{"ok": true, "device": {...}}``.
@@ -100,6 +113,12 @@ CUDA_CORE_MS = {("topk_scores_streaming", 64, 4_000_000, "float32"): 2.470,
           ("topk_scores_streaming", 1, 4_000_000, "float32"): 0.730,
           ("topk_scores_streaming", 1024, 1_000_000, "bfloat16"): 9.451,
           ("topk_scores_pallas", 64, 4_000_000, "float32"): 9.002}
+# B6 (__dp4a on the CUDA cores) and B2 (f32 atomics) before their
+# redesigns: (CUDA-event ms, profiler device ms), NVIDIA H100 80GB HBM3,
+# 700 W; printed beside this run's
+EARLIER_MS = {("topk_scores_streaming_int8", 64): (2.365, 1.820),
+              ("topk_scores_streaming_int8", 1): (0.778, 0.553),
+              ("onehot_scatter_add", "item"): (0.0671, 0.0163)}
 # kernel -> (its source, the TPU kernel it replaces)
 KERNELS = {
     "topk_scores_streaming": ("ncf_tpu_torch/ops/csrc/topk_streaming.cu",
@@ -664,11 +683,55 @@ def _cdf(torch, n, gen):
     return c / c[-1]
 
 
+def _scatter_cases(torch, scatter, gen, dev):
+    """B2 in every mode and gradient dtype at the step's shapes (user and
+    item tables, the vocabulary-level department and category tables, the
+    temporal tables) and at edge shapes (no ids, every id out of range,
+    one id 81,920 times, a Zipf skew over the item table): equal bit for
+    bit to the plain version run on the CPU, and to a second call."""
+    def zipf(shape, rows):
+        u = torch.rand(shape, generator=gen, device=dev)
+        return (u.pow(-1.0 / 0.3) - 1.0).clamp(max=rows + 1).to(torch.int32)
+
+    cases = [(rows, torch.randint(-3, rows + 3, shape, generator=gen,
+                                  device=dev, dtype=torch.int32), d)
+             for rows, shape, d in ((6040, (16384,), 128),
+                                    (3706, (16384, 5), 128),
+                                    (9, (3706,), 64), (30, (3706,), 64),
+                                    (24, (16384,), 32), (7, (16384,), 32),
+                                    (77, (1001, 3), 40), (3, (4096,), 200))]
+    cases += [(3706, torch.zeros((0,), dtype=torch.int32, device=dev), 128),
+              (3706, torch.randint(3706, 9000, (16384, 5), generator=gen,
+                                   device=dev, dtype=torch.int32) *
+               torch.tensor([1, -1, 1, -1, 1], dtype=torch.int32,
+                            device=dev), 128),
+              (3706, torch.full((16384, 5), 1234, dtype=torch.int32,
+                                device=dev), 128),
+              (3706, zipf((16384, 5), 3706), 128)]
+    n = 0
+    for rows, ids, d in cases:
+        g32 = torch.randn(tuple(ids.shape) + (d,), generator=gen, device=dev)
+        for dtype in (torch.bfloat16, torch.float32):
+            g = g32.to(dtype)
+            for mode in scatter.MODES:
+                got = scatter.onehot_scatter_add(ids, g, rows, mode=mode)
+                again = scatter.onehot_scatter_add(ids, g, rows, mode=mode)
+                want = scatter.scatter_add_ref(ids.cpu(), g.cpu(), rows, mode)
+                torch.cuda.synchronize()
+                what = (f"B2 rows={rows} ids {tuple(ids.shape)} {dtype} "
+                        f"{mode}")
+                check(torch.equal(got, again), f"{what}: differs between "
+                      "two calls")
+                check(torch.equal(got.cpu(), want),
+                      f"{what}: kernel != plain version on the CPU")
+                n += 1
+    return n
+
+
 def phase_training_kernels_vs_plain(torch):
     """B1, B2 and B3 against their plain versions at the step's shapes and
-    at edge shapes.  B1 and B3 must be equal; B2 within 1e-6 of the
-    per-element magnitude sum (f32 atomics add in a varying order).
-    Returns {kernel: max |kernel - plain|}."""
+    at edge shapes, each equal bit for bit (B2 to its plain version run on
+    the CPU).  Returns {kernel: max |kernel - plain|}."""
     from ncf_tpu_torch.models.temporal import sinusoidal_table
     from ncf_tpu_torch.ops import sampler, scatter, temporal_sum
 
@@ -694,31 +757,12 @@ def phase_training_kernels_vs_plain(torch):
             check(torch.equal(got.reshape(-1), want),
                   f"B1 I={I} R={R} B={B}: kernel != plain version")
             n += 1
-    for rows, shape, d, dtype in ((6040, (16384,), 128, torch.bfloat16),
-                                  (3706, (16384, 5), 128, torch.bfloat16),
-                                  (9, (3706,), 64, torch.float32),
-                                  (30, (3706,), 64, torch.float32),
-                                  (24, (16384,), 32, torch.float32),
-                                  (3706, (16384, 5), 128, torch.float32),
-                                  (77, (1001, 3), 40, torch.bfloat16)):
-        ids = torch.randint(-3, rows + 3, shape, generator=gen, device=dev,
-                            dtype=torch.int32)       # out-of-range ids too
-        g = torch.randn(shape + (d,), generator=gen, device=dev).to(dtype)
-        flat_ids, flat_g = scatter._flat(ids, g)
-        keep = (flat_ids >= 0) & (flat_ids < rows)
-        mag = torch.zeros((rows, d), device=dev).index_add_(
-            0, flat_ids[keep].long(), flat_g[keep].float().abs())
-        for mode in scatter.MODES:
-            got = scatter.onehot_scatter_add(ids, g, rows, mode=mode)
-            torch.cuda.synchronize()
-            want = scatter.scatter_add_ref(ids, g, rows, mode)
-            err = (got - want).abs()
-            check(bool((err <= 1e-6 * mag + 1e-30).all()),
-                  f"B2 rows={rows} {tuple(shape)} {dtype} {mode}: "
-                  f"kernel differs beyond 1e-6 * sum|g|")
-            errs["onehot_scatter_add"] = max(errs["onehot_scatter_add"],
-                                             float(err.max()))
-            n += 1
+    t0 = time.perf_counter()
+    n2 = _scatter_cases(torch, scatter, gen, dev)
+    n += n2
+    log(f"kernel_vs_plain: onehot_scatter_add {n2} cases equal bit for bit "
+        f"to the plain version on the CPU and from call to call "
+        f"({time.perf_counter() - t0:.1f} s)")
     tables = [torch.randn((r, 32), generator=gen, device=dev)
               for r in (24, 7, 12)] + [sinusoidal_table(32, device=dev)]
     for B, bad in ((16384, False), (16384, True), (5, True)):
@@ -1047,6 +1091,84 @@ def phase_training_sequence(torch):
     return launches, summary
 
 
+def phase_determinism(torch):
+    """Two runs of two training steps from one parameter state and one
+    generator seed must end in equal bits: every parameter and Adam's
+    moments and count, for config A (``fused_tower: auto``, joint and
+    independent) and config B (the quality config with its history).
+    Then one step under ``torch.use_deterministic_algorithms(True,
+    warn_only=True)``: its warnings name any operation of the step that
+    PyTorch knows to be nondeterministic.  Returns a summary."""
+    import warnings
+
+    from ncf_tpu_torch.convert import tree_leaves, tree_map
+    from ncf_tpu_torch.models import advanced_ncf, get_model
+    from ncf_tpu_torch.ops import embedding
+    from ncf_tpu_torch.train import make_optimizer, make_train_step
+
+    embedding.set_scatter_impl("fast")
+    model = get_model("advanced_ncf")
+    summary = {}
+    for path, mode, name in ((ML1M, "joint", "A joint"),
+                             (ML1M, "independent", "A independent"),
+                             (QUALITY, None, "B quality")):
+        cfg, it, consts, _, train_inter = _training_setup(torch, path)
+        check(cfg.model.fused_tower == "auto", f"{name}: tower not auto")
+        if mode is not None:
+            cfg.model.candidate_mode = mode
+        hist = (train_inter.recent_history(cfg.model.history_len)
+                if cfg.model.use_sequence else None)
+        batches = [b for _, b in zip(range(2), it.epoch(0))]
+        params0 = advanced_ncf.init(
+            torch.Generator(device="cuda").manual_seed(11), cfg.model)
+        opt = make_optimizer(cfg.train, steps_per_epoch=len(it))
+        state0 = opt.init(params0)
+        step = make_train_step(model, cfg, opt, *consts, user_history=hist)
+
+        def run():
+            params = tree_map(torch.clone, params0)
+            state = tree_map(torch.clone, state0)
+            gen = torch.Generator(device="cuda").manual_seed(12)
+            for b in batches:
+                params, state, gen, _ = step(params, state, gen, b)
+            torch.cuda.synchronize()
+            return tree_leaves(params) + tree_leaves(state)
+
+        first, second = run(), run()
+        differ = [i for i, (a, b) in enumerate(zip(first, second))
+                  if not torch.equal(a, b)]
+        moved = sum(int((a != b).sum()) for a, b in
+                    zip(first, tree_leaves(params0) + tree_leaves(state0))
+                    if a.shape == b.shape)
+        check(not differ, f"determinism[{name}]: leaves {differ} of "
+              f"{len(first)} differ between two runs from one state")
+        check(moved > 0, f"determinism[{name}]: the steps changed nothing")
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            try:
+                step(tree_map(torch.clone, params0),
+                     tree_map(torch.clone, state0),
+                     torch.Generator(device="cuda").manual_seed(12),
+                     batches[0])
+                torch.cuda.synchronize()
+            finally:
+                torch.use_deterministic_algorithms(False)
+        said = sorted({str(w.message).strip().splitlines()[0][:240]
+                       for w in caught})
+        summary[name] = {"leaves": len(first),
+                         "elements": sum(t.numel() for t in first),
+                         "elements_moved": moved,
+                         "deterministic_mode_warnings": said}
+        log(f"determinism[{name}]: two runs of {len(batches)} steps equal "
+            f"bit for bit over {len(first)} leaves "
+            f"({summary[name]['elements']} elements, {moved} moved); "
+            f"deterministic-mode warnings: {json.dumps(said)}")
+        del params0, state0, first, second
+        torch.cuda.empty_cache()
+    return summary
+
+
 def _tree_check(torch, a_tree, b_tree, lr, steps, share=1e-4):
     """Card params against CPU params: all but ``share`` of all elements
     (0.01% by default) within 1e-4 of their leaf's largest magnitude, and
@@ -1323,7 +1445,8 @@ def _time_training_kernels(torch, batch, negs, params, cfg, consts):
                      "bound_ms": bound, "bound_by": by})
 
     # B2 at each of the step's seven launches (``fast``: bf16 rounding
-    # where the reference runs its kernel, split for the temporal tables)
+    # where the reference runs its kernel, split for the temporal tables),
+    # with the device time of its sort (``scatter._runs``) on its own
     users = torch.as_tensor(batch["user_ids"], device=dev)
     items = torch.cat([pos[:, None], torch.as_tensor(negs, device=dev)], 1)
     dept = torch.as_tensor(consts[1], device=dev)
@@ -1333,12 +1456,14 @@ def _time_training_kernels(torch, batch, negs, params, cfg, consts):
              ("item", items, I, 128, torch.bfloat16),
              ("dept", dept, cfg.model.num_departments, 64, torch.float32),
              ("cat", cat, cfg.model.num_categories, 64, torch.float32),
-             ("hour", hour, 24, 32, torch.float32)]
+             ("hour", hour, 24, 32, torch.float32),
+             ("day", torch.as_tensor(batch["day"], device=dev), 7, 32,
+              torch.float32)]
     for what, ids, nrows, d, dtype in cases:
         g = torch.randn(tuple(ids.shape) + (d,), generator=gen,
                         device=dev).to(dtype)
         mode = (embedding.backward_mode(nrows, d, ids.numel())
-                if what != "hour" else "split")
+                if what not in ("hour", "day") else "split")
         flat_ids, flat_g = scatter._flat(ids, g)
         rounded = scatter.round_mode(flat_g, mode)
         lids = flat_ids.long()
@@ -1353,11 +1478,15 @@ def _time_training_kernels(torch, batch, negs, params, cfg, consts):
             return torch.zeros((nrows, d), device=dev).index_add_(
                 0, lids, rounded)
 
+        runs = functools.partial(scatter._runs, ids)
         rows.append({"kernel": "onehot_scatter_add", "shape": what,
                      "mode": mode, "ids": list(ids.shape),
                      "ms": cuda_ms(call, 50), **_device_fields(call, lib),
+                     "sort_device_ms": device_split(runs)[0],
+                     "atomic_ms": EARLIER_MS.get(("onehot_scatter_add",
+                                                  what)),
                      "plain_ms": cuda_ms(lambda: scatter.scatter_add_ref(
-                         ids, g, nrows, mode), 20),
+                         ids, g, nrows, mode), 3, warmup=1),
                      "library_ms": cuda_ms(lib, 50),
                      "bound_ms": bound, "bound_by": by})
 
@@ -1548,7 +1677,10 @@ def phase_training_timing(torch):
             f"library {r['library_ms']!r} ms (device "
             f"{r.get('library_device_ms')!r} ms), off path "
             f"{r.get('off_path_ms')!r} ms, bound {r['bound_ms']!r} ms "
-            f"({r['bound_by']})")
+            f"({r['bound_by']})" + (
+                f"; sort {r['sort_device_ms']!r} ms of device time, "
+                f"atomic version {r['atomic_ms']!r} ms"
+                if "sort_device_ms" in r else ""))
     log("training_timing_json: " + json.dumps(rows))
     log("training_json: " + json.dumps(steps))
     del main_params
@@ -2073,9 +2205,13 @@ def phase_timing_slice4(torch, topk):
             del q8, t8
         bound, by = _bound(ipad * K + B * K + B * k * 8, 2.0 * B * ipad * K,
                            INT8_OPS_S)
+        dev_ms, split = device_split(call)
         rows.append({"kernel": "topk_scores_streaming_int8",
                      "shape": f"B={B} I={I} D={D} seg 128/1 k={k}",
-                     "ms": cuda_ms(call, 20), **_device_fields(call),
+                     "ms": cuda_ms(call, 20), "device_ms": dev_ms,
+                     "device_passes_ms": _passes(split, "seg_topk"),
+                     "dp4a_ms": EARLIER_MS[("topk_scores_streaming_int8",
+                                            B)],
                      "plain_ms": cuda_ms(lambda: topk.topk_scores_streaming_int8_ref(
                          q, prep, k), 3, warmup=1),
                      "library_ms": lib, "library_device_ms": lib_dev,
@@ -2133,7 +2269,9 @@ def phase_timing_slice4(torch, topk):
                f"by pass "
                f"{json.dumps(r['device_passes_ms'])}, f32 FMA bound "
                f"{r['bound_f32_fma_ms']!r} ms)" if "cuda_core_ms" in r
-               else "")
+               else f" (__dp4a version: {r['dp4a_ms']!r} ms [device]; "
+               f"device by pass {json.dumps(r['device_passes_ms'])})"
+               if "dp4a_ms" in r else "")
         log(f"timing: {r['kernel']} [{r['shape']}] kernel {r['ms']!r} ms "
             f"(device {r['device_ms']!r} ms){was}, plain {r['plain_ms']!r} "
             f"ms, library {r['library_ms']!r} ms (device "
@@ -2146,12 +2284,19 @@ def phase_timing_slice4(torch, topk):
 def main() -> int:
     import torch
 
+    why = None
     if not torch.cuda.is_available():
-        print("chip_smoke: CUDA is not available", file=sys.stderr)
-        return 2
-    if not os.path.isdir(os.path.join(ROOT, "ncf_tpu_torch")):
-        print("chip_smoke: the ncf_tpu_torch package is not beside this "
-              "script", file=sys.stderr)
+        why = "CUDA is not available"
+    elif not os.path.isdir(os.path.join(ROOT, "ncf_tpu_torch")):
+        why = f"the ncf_tpu_torch package is not beside this script in {ROOT}"
+    if why is not None:
+        # on both streams, with what the environment says, so that a run
+        # that stops here shows which check stopped it
+        msg = (f"chip_smoke: {why} (torch {torch.__version__}, CUDA "
+               f"{torch.version.cuda}, CUDA_VISIBLE_DEVICES="
+               f"{os.environ.get('CUDA_VISIBLE_DEVICES')!r})")
+        print(msg, flush=True)
+        print(msg, file=sys.stderr, flush=True)
         return 2
     sys.path.insert(0, ROOT)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2226,6 +2371,10 @@ def main() -> int:
     log("training_sequence_json: " + json.dumps(seq_summary))
     for k, v in seq_launches.items():
         launches[k] += v
+
+    t0 = time.perf_counter()
+    log("determinism_json: " + json.dumps(phase_determinism(torch)))
+    log(f"phase determinism {time.perf_counter() - t0:.1f} s")
     launches["topk_scores_streaming"] = main_launches
     for k, v in slice4_launches.items():
         launches[k] = launches.get(k, 0) + v

@@ -29,12 +29,15 @@ from ncf_tpu_torch.ops.sampler import tree_sample_negatives
 
 def make_sampling_cdf(weights, device=None) -> torch.Tensor:
     """f32 cumulative distribution for inverse-CDF sampling; ``weights``
-    need not be normalized.  The f32 cumulative sum is torch's, which need
-    not round like ``jnp.cumsum``."""
+    need not be normalized.  The cumulative sum is taken on the CPU, in
+    order (torch's, which need not round like ``jnp.cumsum``), and then
+    moved to ``device``: a float scan on the card adds in an order that
+    can change from run to run."""
     if not isinstance(weights, torch.Tensor):
         weights = torch.from_numpy(np.asarray(weights, np.float32))
-    cdf = torch.cumsum(weights.to(device=device, dtype=torch.float32), dim=0)
-    return cdf / cdf[-1]
+    target = weights.device if device is None else device
+    cdf = torch.cumsum(weights.detach().to("cpu", torch.float32), dim=0)
+    return (cdf / cdf[-1]).to(target)
 
 
 def _inverse_cdf(cdf: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
@@ -95,10 +98,14 @@ def sample_negatives(
 def stratified_uniforms(gen: Optional[torch.Generator], n: int,
                         device=None) -> torch.Tensor:
     """``n`` sorted uniforms without a sort: normalised cumulative sums of
-    ``n + 1`` exponential spacings (``sampler.py:124-128``)."""
+    ``n + 1`` exponential spacings (``sampler.py:124-128``).  The spacings
+    are summed in fixed point (int64, units of 2^-32), exact in any order:
+    a float scan on the card adds in an order that can change from run to
+    run, and the step must give the same negatives every time."""
     u = _uniform(gen, (n + 1,), device, 1e-7, 1.0)
-    s = torch.cumsum(-torch.log(u), dim=0)
-    return s[:n] / s[n]
+    spacing = torch.round(-torch.log(u).double() * 2.0 ** 32).long()
+    s = torch.cumsum(spacing, dim=0).double()
+    return (s[:n] / s[n]).float()
 
 
 def sample_negatives_stratified(

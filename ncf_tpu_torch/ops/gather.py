@@ -4,9 +4,13 @@ Port of ``ncf_tpu/ops/pallas_embedding.py::pallas_embedding_lookup``, the
 lookup that ``ops.embedding.set_impl("pallas")`` selects.  The forward
 gathers rows with the hand-written kernel in ``csrc/gather.cu`` on CUDA
 tensors and with ``gather_rows_ref`` (``table[ids]``) on CPU tensors.  The
-backward is the reference's: a scatter-add of the output gradient in the
-table's dtype (``pallas_embedding.py:152-161``, an XLA scatter there,
-``index_add_`` here), not the scatter-add kernel B2.
+backward scatter-adds the output gradient through the deterministic
+scatter-add B2 in ``f32`` mode (``ops/scatter.py``: the kernel on the card,
+its plain version on the CPU, bit for bit alike), the ids flattened
+row-major, then casts the f32 sum to the table's dtype.  The reference's
+backward (``pallas_embedding.py:152-161``) is an XLA scatter that adds in
+the table's dtype: for a bf16 table the port rounds once, after an f32
+sum, where the reference rounds at every add.
 """
 
 from __future__ import annotations
@@ -14,6 +18,7 @@ from __future__ import annotations
 import torch
 
 from ncf_tpu_torch.ops import _kernels
+from ncf_tpu_torch.ops.scatter import onehot_scatter_add
 
 
 def gather_rows_ref(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
@@ -81,10 +86,10 @@ class _PallasLookup(torch.autograd.Function):
     def backward(ctx, g):
         (ids,) = ctx.saved_tensors
         rows, d = ctx.table_shape
-        dtype = ctx.table_dtype
-        grad = torch.zeros((rows, d), dtype=dtype, device=g.device)
-        grad.index_add_(0, ids.reshape(-1).long(), g.reshape(-1, d).to(dtype))
-        return grad, None
+        flat = ids.reshape(-1)
+        flat = torch.where(flat < 0, flat + rows, flat)   # ids in [-N, N)
+        grad = onehot_scatter_add(flat, g.reshape(-1, d), rows, mode="f32")
+        return grad.to(ctx.table_dtype), None
 
 
 def pallas_embedding_lookup(table: torch.Tensor,

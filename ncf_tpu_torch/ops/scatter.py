@@ -10,15 +10,18 @@ Each element is rounded first, by mode:
 - ``bf16``: ``float(bf16(g))``;
 - ``f32``: ``g`` unchanged.
 
-2-D ids ``[B, S]`` with grads ``[B, S, D]`` are taken slot-major (all rows
-of slot 0, then slot 1, ...), as the reference flattens them; the sum
-does not depend on the order.
+2-D ids ``[B, S]`` with grads ``[B, S, D]`` are flattened slot-major (all
+rows of slot 0, then slot 1, ...), as the reference flattens them; other
+shapes row-major.  The order of the adds is fixed: each element of row
+``i`` is the sequential f32 sum, in flattened order, of that row's rounded
+values, starting from 0.0 (what a sequential ``np.add.at`` in f32
+computes).  So a result does not depend on the run or the device: the
+kernel equals the plain version bit for bit.
 
-CUDA tensors launch ``csrc/scatter_add.cu`` (one warp per input row, f32
-``atomicAdd``) or raise; CPU tensors take ``scatter_add_ref``, the plain
-version.  Atomics add in an order that changes from run to run, so two
-runs agree within a few f32 ulps of ``sum |g|`` per element, not bit for
-bit.
+CUDA tensors sort the flattened ids stably (``torch.sort``, bookkeeping:
+no gradient value is added there) and launch ``csrc/scatter_add.cu``,
+which adds each row's run in order and writes each row once, or raise;
+CPU tensors take ``scatter_add_ref``, the plain version.
 
 ``scatter_fits`` and ``scatter_preferred`` are copies of the reference's
 routing rules, with its TPU cost model: the port uses them only to choose
@@ -34,6 +37,7 @@ from ncf_tpu_torch.ops import _kernels
 
 MODES = ("split", "bf16", "f32")
 _MODE_CODE = {"split": 0, "bf16": 1, "f32": 2}
+_LONG_RUN = 128      # the kernel's kLongRun: longer runs get a block each
 
 
 def _round_up(x: int, m: int) -> int:
@@ -53,24 +57,61 @@ def round_mode(g: torch.Tensor, mode: str) -> torch.Tensor:
     return hi + lo
 
 
+def _flat_ids(ids: torch.Tensor) -> torch.Tensor:
+    """The reference's flattening: 2-D ids slot-major, others row-major."""
+    return (ids.transpose(0, 1) if ids.dim() == 2 else ids).reshape(-1)
+
+
 def _flat(ids: torch.Tensor, grads: torch.Tensor):
-    """Flatten like the reference: 2-D ids slot-major."""
+    """Flatten ids and grads alike (``_flat_ids``)."""
     if ids.dim() == 2:
-        return (ids.transpose(0, 1).reshape(-1),
-                grads.transpose(0, 1).reshape(-1, grads.shape[-1]))
-    return ids.reshape(-1), grads.reshape(-1, grads.shape[-1])
+        grads = grads.transpose(0, 1)
+    return _flat_ids(ids), grads.reshape(-1, grads.shape[-1])
 
 
 def scatter_add_ref(ids: torch.Tensor, grads: torch.Tensor, num_rows: int,
                     mode: str = "split") -> torch.Tensor:
-    """Plain version of the kernel (same arguments, same result up to the
-    order of the f32 additions)."""
+    """Plain version of the kernel (same arguments, the same result bit for
+    bit).  The order of the adds is written out: the flattened positions
+    are sorted stably by id, each position's rank within its id's run is
+    its level, and level r adds the r-th value of every id at once (the
+    ids of a level are distinct), levels in order; so each element is the
+    sequential f32 sum of its rounded values in flattened order, whatever
+    the device and thread count."""
     flat_ids, flat_g = _flat(ids, grads)
     flat_ids = flat_ids.long()
     keep = (flat_ids >= 0) & (flat_ids < num_rows)
     out = torch.zeros((num_rows, grads.shape[-1]), dtype=torch.float32,
                       device=grads.device)
-    return out.index_add_(0, flat_ids[keep], round_mode(flat_g[keep], mode))
+    kept, vals = flat_ids[keep], round_mode(flat_g[keep], mode)
+    n = kept.numel()
+    if n == 0:
+        return out
+    sid, order = torch.sort(kept, stable=True)
+    pos = torch.arange(n, device=kept.device)
+    first = torch.ones(n, dtype=torch.bool, device=kept.device)
+    first[1:] = sid[1:] != sid[:-1]
+    rank = pos - torch.cummax(torch.where(first, pos, 0), 0).values
+    by_level = torch.sort(rank, stable=True).indices
+    sid, src = sid[by_level], order[by_level]
+    start = 0
+    for count in torch.bincount(rank).tolist():
+        level = sid[start:start + count]
+        out[level] = out[level] + vals[src[start:start + count]]
+        start += count
+    return out
+
+
+def _runs(ids: torch.Tensor):
+    """The kernel's bookkeeping: the flattened ids as int32 sorted stably
+    (equal ids keep their flattened order) with their flattened positions
+    (int64), and the ``(rows, slots)`` that map a flattened position ``f``
+    to its row of grads: ``f`` itself when ``slots == 1``, else ``(f %
+    rows) * slots + f // rows`` (2-D ids, flattened slot-major)."""
+    flat = _flat_ids(ids).to(torch.int32)
+    sorted_ids, perm = torch.sort(flat, stable=True)
+    rows, slots = tuple(ids.shape) if ids.dim() == 2 else (flat.numel(), 1)
+    return sorted_ids, perm, rows, slots
 
 
 def _scatter_cuda(ids, grads, num_rows, mode):
@@ -79,22 +120,22 @@ def _scatter_cuda(ids, grads, num_rows, mode):
                         f"{grads.dtype}")
     if ids.device != grads.device:
         raise ValueError("ids and grads must share one device")
-    if ids.dim() > 2:                   # the order of the sum is free
-        ids, grads = ids.reshape(-1), grads.reshape(-1, grads.shape[-1])
-    if ids.dim() not in (1, 2) or grads.shape[:-1] != ids.shape:
+    if grads.dim() < 1 or grads.shape[:-1] != ids.shape:
         raise ValueError(f"ids {tuple(ids.shape)} do not index grads "
                          f"{tuple(grads.shape)}")
     D = grads.shape[-1]
-    rows, slots = (ids.shape[0], 1) if ids.dim() == 1 else ids.shape
-    ids = ids.to(torch.int32).contiguous()
+    sorted_ids, perm, rows, slots = _runs(ids)
     grads = grads.contiguous()
     out = torch.empty((num_rows, D), dtype=torch.float32, device=grads.device)
+    n = sorted_ids.numel()
+    longs = torch.empty(1 + n // (_LONG_RUN + 1), dtype=torch.int32,
+                        device=grads.device)
     with torch.cuda.device(grads.device):
         _kernels.launch(
-            *C_ENTRY, ids.data_ptr(), grads.data_ptr(),
-            0 if grads.dtype == torch.float32 else 1, rows, slots, D,
-            num_rows, _MODE_CODE[mode], out.data_ptr(),
-            _kernels.stream_of(grads))
+            *C_ENTRY, sorted_ids.data_ptr(), perm.data_ptr(),
+            grads.data_ptr(), 0 if grads.dtype == torch.float32 else 1, n,
+            rows, slots, D, num_rows, _MODE_CODE[mode], longs.data_ptr(),
+            out.data_ptr(), _kernels.stream_of(grads))
     onehot_scatter_add.launches.add()
     return out
 
@@ -115,7 +156,7 @@ def onehot_scatter_add(ids: torch.Tensor, grads: torch.Tensor,
 
 onehot_scatter_add.launches = _kernels.LaunchCounter()
 # (library, C function, argument codes of ``_kernels.bind``)
-C_ENTRY = ("scatter_add", "ncf_scatter_add", "ppiiiiiipp")
+C_ENTRY = ("scatter_add", "ncf_scatter_add", "pppiiiiiiippp")
 
 
 # ------------------------------------------- the reference's routing rules

@@ -8,9 +8,10 @@ two baseline models, against ``ncf_tpu``.
 Tolerances: the gather is equal bit for bit (a copy).  Logits in float32
 compute within 1e-5 (f32 sums in another order); gradients within 1e-5 of
 each leaf's largest magnitude (float32); a bf16 table's gradient within
-2^-6 of each element's magnitude sum (both add duplicates in bf16, each
-add rounding by up to half an ulp of the running sum, in another order).
-Served ids equal and probabilities within 1e-5.
+2^-6 of each element's magnitude sum (the reference adds duplicates in
+bf16, each add rounding by up to half an ulp of the running sum; the
+port's backward adds them in f32 through B2 and rounds once).  Served ids
+equal and probabilities within 1e-5.
 """
 
 import functools
@@ -119,10 +120,12 @@ def test_set_impl_routes_lookups(monkeypatch):
 
 @pytest.mark.parametrize("dtype", ("float32", "bfloat16"))
 def test_pallas_gradient_matches_the_reference(pallas_impl, dtype):
-    """The backward scatter-adds in the table's dtype, duplicates summed:
-    the reference's backward (``pallas_embedding._bwd``) and ``jax.grad``
-    of the gather (the same scatter; the reference's custom VJP itself
-    does not trace under ``jax.grad``: its residuals hold the dtype)."""
+    """The backward sums duplicates in f32 through B2 and casts to the
+    table's dtype, against the reference's backward
+    (``pallas_embedding._bwd``, a scatter in the table's dtype) and
+    ``jax.grad`` of the gather (the same scatter; the reference's custom
+    VJP itself does not trace under ``jax.grad``: its residuals hold the
+    dtype)."""
     rng = np.random.default_rng(1)
     table = rng.normal(size=(50, 16)).astype(np.float32)
     ids = rng.integers(0, 50, (30, 4)).astype(np.int32)
@@ -217,6 +220,39 @@ def test_training_gradients_match(pallas_impl):
         ref = np.asarray(ref)
         np.testing.assert_allclose(got.grad.numpy(), ref, rtol=0,
                                    atol=1e-5 * np.abs(ref).max() + 1e-9)
+
+
+@pytest.mark.parametrize("name", ("ncf", "neumf"))
+@pytest.mark.parametrize("dtype", ("float32", "bfloat16"))
+def test_pallas_gradients_match_the_xla_lookup(name, dtype):
+    """Every parameter's gradient (f32 leaves, ``dtype`` the compute
+    dtype) with the lookups through B7, whose backward is B2 in f32 mode,
+    against the port's default lookup, whose backward is B2 in the routed
+    mode: within 1e-5 of each leaf's largest magnitude."""
+    _, tcfg = _cfgs(name, 40, 30, dtype)
+    np_params = _params(_cfgs(name, 40, 30)[0], seed=5)
+    rng = np.random.default_rng(5)
+    u = torch.from_numpy(rng.integers(0, 40, 24).astype(np.int32))
+    items = torch.from_numpy(rng.integers(0, 30, (24, 6)).astype(np.int32))
+    items[:, 0] = items[0, 0]                   # a repeated item
+    w = torch.from_numpy(rng.normal(size=(24, 6)).astype(np.float32))
+    grads = {}
+    for impl in ("xla", "pallas"):
+        temb.set_impl(impl)
+        try:
+            tp = params_from_numpy(np_params, "cpu")
+            for leaf in tree_leaves(tp):
+                leaf.requires_grad_(True)
+            (tncf.apply(tp, tcfg.model, u, items, deterministic=True)
+             * w).sum().backward()
+            grads[impl] = [leaf.grad for leaf in tree_leaves(tp)]
+        finally:
+            temb.set_impl("xla")
+    for got, want in zip(grads["pallas"], grads["xla"]):
+        assert got.dtype == want.dtype == torch.float32
+        want = want.numpy()
+        np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                                   atol=1e-5 * np.abs(want).max() + 1e-9)
 
 
 # ------------------------------------------------------------- serving

@@ -6,7 +6,11 @@ numbers.
 Tolerances: ids must be equal (``==``) given the same uniforms and CDF.
 ``make_sampling_cdf`` agrees to atol 1e-6: ``jnp.cumsum`` and
 ``torch.cumsum`` may add in another order, so the last bits of an f32
-prefix sum may differ (the ids are then held on one shared CDF).
+prefix sum may differ (the ids are then held on one shared CDF).  The
+port's stratified uniforms sum their spacings in int64 fixed point: equal
+bit for bit to that sum taken in NumPy, and within 1e-5 of the
+reference's f32 formula on the same uniforms (f32 prefix sums of 4,096
+spacings).
 """
 
 import numpy as np
@@ -163,6 +167,22 @@ def test_stratified_sampler_equals_the_reference(num_items, weighted, rounds):
         sorted_u=torch.from_numpy(sorted_u), rot=rot)
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_stratified_uniforms_sum_spacings_in_fixed_point():
+    n = 4096
+    got = tsampler.stratified_uniforms(torch.Generator().manual_seed(3), n)
+    u = tsampler._uniform(torch.Generator().manual_seed(3), (n + 1,), None,
+                          1e-7, 1.0)
+    e = (-torch.log(u)).double().numpy()
+    spacing = np.round(e * 2.0 ** 32).astype(np.int64)
+    s = np.cumsum(spacing)
+    assert s[-1] == spacing[::-1].sum()            # any order, same sum
+    want = (s[:n].astype(np.float64) / float(s[n])).astype(np.float32)
+    np.testing.assert_array_equal(got.numpy(), want)
+    s32 = jnp.cumsum(-jnp.log(jnp.asarray(u.numpy())))
+    ref = np.asarray(s32[:n] / s32[n])
+    np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=1e-5)
 
 
 def test_stratified_uniforms_are_sorted_and_seeded():
