@@ -7,7 +7,9 @@ Phases (each asserts; any failure exits non-zero and prints no result):
 
 1. the card's name and power limit, as ``nvidia-smi`` reports them;
 2. ``nvcc`` build of every kernel source of the package (one ``nvcc`` per
-   source, all started together), with its wall time;
+   source, all started together), with its wall time; the tower kernels'
+   HMMA (tensor-core) instruction counts and resource use, read back with
+   ``cuobjdump`` (each instance of B4f and B4b must hold HMMAs);
 3. every kernel against its plain PyTorch version on the card, on the same
    inputs: the streaming top-k (B5) at the serving shapes, with tied
    scores and empty slots, and B5's and B8's answers for a user alone
@@ -106,6 +108,13 @@ PEAK_BYTES_S = 3.35e12                  # H100 SXM HBM3
 PEAK_FLOP_S = {"float32": 67e12,        # CUDA-core f32
                "bfloat16": 989e12,      # dense bf16 tensor cores
                "tf32": 495e12}          # dense TF32 tensor cores
+# int32 instructions a second: 64 INT32 lanes an SM against the 128 f32
+# lanes (two operations each) behind the 67 TFLOP/s, so a quarter of it
+PEAK_INT32_S = 67e12 / 4
+# integer instructions of one Philox4x32-10 draw (ten rounds of two
+# multiplies high and low, four xors and two key adds), counted from the
+# kernel's source
+PHILOX_OPS = 100
 # B5's and B8's times as CUDA-core kernels, before the tensor-core tile
 # replaced them (CUDA events, ms; NVIDIA H100 80GB HBM3, 700 W), printed
 # beside this run's
@@ -118,7 +127,14 @@ CUDA_CORE_MS = {("topk_scores_streaming", 64, 4_000_000, "float32"): 2.470,
 # 700 W; printed beside this run's
 EARLIER_MS = {("topk_scores_streaming_int8", 64): (2.365, 1.820),
               ("topk_scores_streaming_int8", 1): (0.778, 0.553),
-              ("onehot_scatter_add", "item"): (0.0671, 0.0163)}
+              ("onehot_scatter_add", "item"): (0.0671, 0.0163),
+              # B4f and B4b on the CUDA cores (f32 FMAs), PR 7's run
+              ("fused_tower_fwd", "[16384, 96]"): (0.2676, 0.2197),
+              ("fused_tower_fwd", "[81920, 96]"): (1.1807, 0.9924),
+              ("fused_tower_fwd", "[81920, 160]"): (1.4215, 1.2012),
+              ("fused_tower_bwd", "[16384, 96]"): (0.7445, 0.6578),
+              ("fused_tower_bwd", "[81920, 96]"): (3.4585, 3.2353),
+              ("fused_tower_bwd", "[81920, 160]"): (7.5610, 7.1538)}
 # kernel -> (its source, the TPU kernel it replaces)
 KERNELS = {
     "topk_scores_streaming": ("ncf_tpu_torch/ops/csrc/topk_streaming.cu",
@@ -781,6 +797,47 @@ def phase_training_kernels_vs_plain(torch):
     return errs
 
 
+def _tower_sass(kernels):
+    """Each kernel of the built ``fused_tower`` library (by its short
+    name, e.g. ``tower_bwd_kernel<4>``): its HMMA (tensor-core)
+    instructions in the SASS and the registers, stack, shared and local
+    memory that ``cuobjdump -res-usage`` reports.  Every instance of B4f
+    and B4b must hold HMMA instructions."""
+    import re
+    import shutil
+
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    tool = shutil.which("cuobjdump") or os.path.join(
+        CUDA_HOME or "/usr/local/cuda", "bin", "cuobjdump")
+    lib = kernels._target("fused_tower")[1]
+    runs = [subprocess.run([tool, flag, lib], capture_output=True, text=True,
+                           timeout=120) for flag in ("-sass", "-res-usage")]
+    check(all(r.returncode == 0 for r in runs),
+          f"cuobjdump failed: {[r.stderr.strip() for r in runs]}")
+
+    def short(mangled):
+        m = re.search(r"(tower_(?:fwd|bwd)_kernel)ILi(\d+)E", mangled)
+        return f"{m.group(1)}<{m.group(2)}>" if m else (
+            "reduce_partials" if "reduce_partials" in mangled else mangled)
+
+    out, name = {}, None
+    for line in runs[0].stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = short(m.group(1))
+            out[name] = {"hmma": 0}
+        elif name is not None and "HMMA" in line:
+            out[name]["hmma"] += 1
+    for m in re.finditer(r"Function (\S+):\s*\n\s*(REG:\d+ STACK:\d+ "
+                         r"SHARED:\d+ LOCAL:\d+)", runs[1].stdout):
+        out.setdefault(short(m.group(1)), {})["usage"] = m.group(2)
+    towers = [k for k in out if k.startswith("tower_")]
+    check(len(towers) == 6 and all(out[k].get("hmma", 0) > 0 for k in towers),
+          f"B4f/B4b without tensor-core instructions: {out}")
+    return out
+
+
 def _tower_layers(torch, d0, hidden, gen):
     """Tower params as ``mlp_tower_init`` draws them, with the LayerNorm
     scale and bias moved off (1, 0) so their gradients are general."""
@@ -801,6 +858,30 @@ def _tower_leaves(layers):
         ("dense", "w"), ("dense", "b"), ("norm", "scale"), ("norm", "bias"))]
 
 
+def _near_kink_rows(torch, tower, layers, x, rate):
+    """Rows of ``x`` where the plain forward (with the masks the compare
+    runs draw) has a pre-activation within 1e-5 of the row's largest from
+    the ReLU's kink.  There a rounding-level difference between two f32
+    sums can flip the ReLU: the row's output moves by that rounding, its
+    gradient by the whole term."""
+    dev = x.device
+    if rate > 0.0:
+        seed = torch.randint(0, 2 ** 31 - 1, (1,), device=dev,
+                             dtype=torch.int32, generator=torch.Generator(
+                                 device=dev).manual_seed(17))
+    else:
+        seed = torch.zeros((1,), dtype=torch.int32, device=dev)
+    h = x.reshape(-1, x.shape[-1]).to(torch.bfloat16).float()
+    near = torch.zeros(h.shape[0], dtype=torch.bool, device=dev)
+    flat = [t.detach() for t in _tower_leaves(layers)]
+    for i, (w, b, g, be) in enumerate(tower._layers(flat)):
+        pre = torch.matmul(h, w.to(torch.bfloat16).float()) + b
+        near |= (pre.abs() <= 1e-5 * pre.abs().amax(1, keepdim=True)).any(1)
+        y, *_ = tower._layer_fwd(h, w, b, g, be, i, seed, rate)
+        h = y.to(torch.bfloat16).float()
+    return near
+
+
 def _tower_compare(torch, tower, layers, x, rate, what):
     """B4f and B4b against ``fused_tower_ref`` on the same inputs and the
     same generator state.  Tolerances: identical dropout zeros; outputs
@@ -809,10 +890,12 @@ def _tower_compare(torch, tower, layers, x, rate, what):
     order; where two straddle a bf16 rounding boundary between layers,
     the rest of that row moves by up to ~1e-2, in a few percent of the
     rows at width 512).  The backwards are held on the rows whose outputs
-    agree to 1e-5 (at least 90%; dy is zero elsewhere):
-    each parameter gradient within 1e-4 of its largest magnitude, dx
-    within one bf16 ulp plus 1e-4 of its largest magnitude.  Returns
-    (max |out diff|, max |grad diff| over dx and the leaves)."""
+    agree to 1e-5 (at least 90%) and whose pre-activations all lie more
+    than 1e-5 of the row's largest from the ReLU's kink (``_near_kink_rows``;
+    dy is zero elsewhere): each parameter gradient within 1e-4 of its
+    largest magnitude, dx within one bf16 ulp plus 1e-4 of its largest
+    magnitude.  Returns (max |out diff|, max |grad diff| over dx and the
+    leaves)."""
     runs = []
     for fn in (tower.fused_tower, tower.fused_tower_ref):
         tracked = [{k: {n: t.detach().clone().requires_grad_(True)
@@ -835,9 +918,13 @@ def _tower_compare(torch, tower, layers, x, rate, what):
     same = (err <= 1e-5 * scale).reshape(-1, err.shape[-1]).all(-1)
     check(float(same.float().mean()) >= 0.9,
           f"B4f {what}: only {float(same.float().mean())!r} of rows agree")
+    near = _near_kink_rows(torch, tower, layers, x, rate)
+    held = same & ~near
+    log(f"B4b {what}: backward held on {int(held.sum())} of {held.numel()} "
+        f"rows ({int(near.sum())} near a ReLU kink)")
     dy = torch.randn(ko.shape, device=x.device, generator=torch.Generator(
         device=x.device).manual_seed(5))
-    dy = dy * same.reshape(ko.shape[:-1] + (1,))
+    dy = dy * held.reshape(ko.shape[:-1] + (1,))
     ko.backward(dy)
     ro.backward(dy)
     torch.cuda.synchronize()
@@ -1515,11 +1602,20 @@ def _time_training_kernels(torch, batch, negs, params, cfg, consts):
 
 def _time_tower(torch):
     """B4f and B4b at the three tower shapes of the training steps (dropout
-    0.2): the kernel call (CUDA events and profiler device time), its plain
-    version, the plain layers that ``off`` runs instead (eager
-    ``mlp_tower``, forward and forward + backward through autograd) and
-    the bound.  No single PyTorch call computes the fused tower, so there
-    is no library time."""
+    0.2): the kernel call (CUDA events and profiler device time) beside its
+    CUDA-core version's time (PR 7), its plain version, the plain layers
+    that ``off`` runs instead (eager ``mlp_tower``, forward and forward +
+    backward through autograd) and the bound.  No single PyTorch call
+    computes the fused tower, so there is no library time.
+
+    Bounds: B4f, its bf16 products against its bytes, and beside it
+    ``philox_ms``, its masks' Philox draws (one per four activations) at
+    the int32 rate.  B4b, the cheapest f32-faithful route on the tensor
+    cores: the recomputed forward (one bf16 product), dW = h^T dz (h
+    exact, dz in three bf16 pieces: three bf16 products) and dh = dz W^T
+    (three TF32 products), against x, dy, dx and the parameters and their
+    gradients once each; ``bound_f32_fma_ms`` is the bound stated for the
+    CUDA-core kernel (four f32 products at the FMA rate)."""
     from ncf_tpu_torch.models.layers import mlp_tower
     from ncf_tpu_torch.ops import tower
 
@@ -1560,24 +1656,33 @@ def _time_tower(torch):
         shape = f"[{rows}, {d0}]"
         b_f, by_f = _bound(rows * d0 * 2 + rows * dims[-1] * 4 + n_params * 4,
                            2 * macs, PEAK_FLOP_S["bfloat16"])
-        b_b, by_b = _bound(rows * d0 * 4 + rows * dims[-1] * 4
-                           + n_params * 8, 4 * macs, PEAK_FLOP_S["float32"])
+        bwd_bytes = rows * d0 * 4 + rows * dims[-1] * 4 + n_params * 8
+        t_bytes = bwd_bytes / PEAK_BYTES_S * 1e3
+        t_ops = (2 * macs * 4 / PEAK_FLOP_S["bfloat16"]
+                 + 2 * macs * 3 / PEAK_FLOP_S["tf32"]) * 1e3
+        b_b, by_b = max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                          else "operations")
+        fma_b, _ = _bound(bwd_bytes, 4 * macs, PEAK_FLOP_S["float32"])
+        draws = rows * sum(-(-d // 4) for d in dims[1:])
+        philox_ms = draws * PHILOX_OPS / PEAK_INT32_S * 1e3
         off_f, off_fb = cuda_ms(off_fwd, 20), cuda_ms(off_both, 10)
-        rows_out.append({
-            "kernel": "fused_tower_fwd", "shape": shape, "ms": cuda_ms(fwd, 20),
-            **_device_fields(fwd),
-            "plain_ms": cuda_ms(lambda: tower._fwd_ref(x2, seed, flat, rate),
-                                3, warmup=1),
-            "library_ms": None, "off_path_ms": off_f,
-            "bound_ms": b_f, "bound_by": by_f})
-        rows_out.append({
-            "kernel": "fused_tower_bwd", "shape": shape, "ms": cuda_ms(bwd, 10),
-            **_device_fields(bwd),
-            "plain_ms": cuda_ms(lambda: tower._bwd_ref(x2, dy, seed, flat,
-                                                       rate), 3, warmup=1),
-            "library_ms": None, "off_path_ms": off_fb,
-            "fused_fwd_bwd_ms": cuda_ms(fused_both, 10),
-            "bound_ms": b_b, "bound_by": by_b})
+        for kernel, call, iters, plain, extra in (
+                ("fused_tower_fwd", fwd, 20,
+                 lambda: tower._fwd_ref(x2, seed, flat, rate),
+                 {"off_path_ms": off_f, "bound_ms": b_f, "bound_by": by_f}),
+                ("fused_tower_bwd", bwd, 10,
+                 lambda: tower._bwd_ref(x2, dy, seed, flat, rate),
+                 {"off_path_ms": off_fb,
+                  "fused_fwd_bwd_ms": cuda_ms(fused_both, 10),
+                  "bound_ms": b_b, "bound_by": by_b,
+                  "bound_f32_fma_ms": fma_b})):
+            pr7_ms, pr7_device_ms = EARLIER_MS[(kernel, shape)]
+            rows_out.append({
+                "kernel": kernel, "shape": shape, "ms": cuda_ms(call, iters),
+                **_device_fields(call), "pr7_ms": pr7_ms,
+                "pr7_device_ms": pr7_device_ms,
+                "plain_ms": cuda_ms(plain, 3, warmup=1), "library_ms": None,
+                "philox_ms": philox_ms, **extra})
         del layers, flat, leaves, tracked, x2, dy
         torch.cuda.empty_cache()
     return rows_out
@@ -1680,7 +1785,13 @@ def phase_training_timing(torch):
             f"({r['bound_by']})" + (
                 f"; sort {r['sort_device_ms']!r} ms of device time, "
                 f"atomic version {r['atomic_ms']!r} ms"
-                if "sort_device_ms" in r else ""))
+                if "sort_device_ms" in r else "") + (
+                f"; CUDA-core version (PR 7) {r['pr7_ms']!r} ms (device "
+                f"{r['pr7_device_ms']!r} ms); Philox draws "
+                f"{r['philox_ms']!r} ms at the int32 rate"
+                if "pr7_ms" in r else "") + (
+                f"; f32 FMA bound {r['bound_f32_fma_ms']!r} ms"
+                if "bound_f32_fma_ms" in r else ""))
     log("training_timing_json: " + json.dumps(rows))
     log("training_json: " + json.dumps(steps))
     del main_params
@@ -2320,6 +2431,7 @@ def main() -> int:
     secs = _kernels.build_all()
     log(f"build: nvcc {' '.join(_kernels.NVCC_FLAGS)} "
         f"{', '.join(s + '.cu' for s in _kernels.SOURCES)} in {secs:.1f} s")
+    log("build: fused_tower SASS " + json.dumps(_tower_sass(_kernels)))
 
     t0 = time.perf_counter()
     max_err = {"topk_scores_streaming": phase_kernel_vs_plain(torch, topk)}

@@ -24,7 +24,13 @@ with the TPU's own generator.
 
 ``fused_tower`` launches ``csrc/fused_tower.cu`` for CUDA tensors (or
 raises) and runs the plain version for CPU tensors; ``fused_tower_ref``
-always runs the plain version, on any device.  ``tower_fits`` is a copy
+always runs the plain version, on any device.  The kernels run their
+products on the tensor cores: the forward's bf16 products exactly, the
+backward's f32 products as split TF32 (within a few 2^-22 of each
+product), so they agree with the plain version up to the order and
+rounding of f32 sums.  They read the parameters where they lie (f32,
+contiguous: no packed copy) and sum the weight gradients in a fixed
+order.  ``tower_fits`` is a copy
 of the reference's routing rule, kept so that both packages route the
 same shapes; the kernels themselves take any depth up to 16 and widths up
 to 512.
@@ -47,7 +53,7 @@ MAX_WIDTH = 512
 
 # (library, C function, argument codes of ``_kernels.bind``)
 C_FWD = ("fused_tower", "ncf_tower_fwd", "pppiipilfpp")
-C_BWD = ("fused_tower", "ncf_tower_bwd", "pppppiipilfipppp")
+C_BWD = ("fused_tower", "ncf_tower_bwd", "ppppiipilfipppp")
 
 
 def _round_up(x: int, m: int) -> int:
@@ -205,8 +211,14 @@ def _check_cuda(x2, flat, dims):
         raise ValueError("the tower kernels take at least one row")
 
 
-def _pack(flat) -> torch.Tensor:
-    return torch.cat([p.reshape(-1).to(torch.float32) for p in flat])
+def _leaves(flat):
+    """The leaves as f32 contiguous tensors (the model's already are, so
+    nothing is copied) and a host array of their device addresses in
+    packing order (W, b, g, be per layer), which the kernels read."""
+    leaves = [p if p.dtype == torch.float32 and p.is_contiguous()
+              else p.to(torch.float32).contiguous() for p in flat]
+    ptrs = (ctypes.c_void_p * len(leaves))(*[p.data_ptr() for p in leaves])
+    return leaves, ptrs
 
 
 def _c_dims(dims):
@@ -223,13 +235,13 @@ def _fwd_cuda(x2, seed, flat, rate):
     dims = _dims(x2, flat)
     _check_cuda(x2, flat, dims)
     x2 = x2.contiguous()
-    packed = _pack(flat)
+    leaves, ptrs = _leaves(flat)
     out = torch.empty((x2.shape[0], dims[-1]), dtype=torch.float32,
                       device=x2.device)
     use, thr, inv = _keep_args(rate)
     cdims = _c_dims(dims)
     with torch.cuda.device(x2.device):
-        _kernels.launch(*C_FWD, x2.data_ptr(), packed.data_ptr(),
+        _kernels.launch(*C_FWD, x2.data_ptr(), ctypes.addressof(ptrs),
                         ctypes.addressof(cdims), len(dims) - 1, x2.shape[0],
                         seed.data_ptr(), use, thr, inv, out.data_ptr(),
                         _kernels.stream_of(x2))
@@ -242,27 +254,25 @@ def _bwd_cuda(x2, dy, seed, flat, rate):
     _check_cuda(x2, flat, dims)
     x2 = x2.contiguous()
     dy = dy.to(torch.float32).contiguous()
-    packed = _pack(flat)
-    packed_t = torch.cat([w.to(torch.float32).t().reshape(-1)
-                          for w in flat[0::4]])
+    leaves, ptrs = _leaves(flat)
     rows = x2.shape[0]
-    # one f32 slice of the weight gradients per resident block (at most
-    # two a multiprocessor, never more than 16-row tiles)
+    n_params = sum(p.numel() for p in leaves)
+    # one f32 slice of the parameter gradients per resident block: the
+    # kernel keeps at most one block a multiprocessor, tiles of >= 16 rows
     sms = torch.cuda.get_device_properties(x2.device).multi_processor_count
-    max_blocks = max(1, min(-(-rows // 16), 2 * sms))
-    scratch = torch.empty(max_blocks * packed.numel(), dtype=torch.float32,
+    max_blocks = max(1, min(-(-rows // 16), sms))
+    scratch = torch.empty(max_blocks * n_params, dtype=torch.float32,
                           device=x2.device)
-    grads = torch.empty_like(packed)
+    grads = torch.empty(n_params, dtype=torch.float32, device=x2.device)
     dx = torch.empty((rows, dims[0]), dtype=torch.bfloat16, device=x2.device)
     use, thr, inv = _keep_args(rate)
     cdims = _c_dims(dims)
     with torch.cuda.device(x2.device):
         _kernels.launch(*C_BWD, x2.data_ptr(), dy.data_ptr(),
-                        packed.data_ptr(), packed_t.data_ptr(),
-                        ctypes.addressof(cdims), len(dims) - 1, rows,
-                        seed.data_ptr(), use, thr, inv, max_blocks,
-                        scratch.data_ptr(), grads.data_ptr(), dx.data_ptr(),
-                        _kernels.stream_of(x2))
+                        ctypes.addressof(ptrs), ctypes.addressof(cdims),
+                        len(dims) - 1, rows, seed.data_ptr(), use, thr, inv,
+                        max_blocks, scratch.data_ptr(), grads.data_ptr(),
+                        dx.data_ptr(), _kernels.stream_of(x2))
     fused_tower.bwd_launches.add()
     out, off = [], 0
     for p in flat:

@@ -31,7 +31,8 @@ Tolerances:
   flip in a few percent of cases).  The backwards are held on the rows
   whose outputs agree to 1e-5 (at least 90%; dy is zero on the others):
   each parameter gradient within 1e-4 of its largest magnitude, dx
-  within one bf16 ulp plus 1e-4 of its largest magnitude.
+  within one bf16 ulp plus 1e-4 of its largest magnitude; two backward
+  calls on the same inputs equal bit for bit.
 
 The tests at the end, which check the ctypes bindings against the C
 prototypes, run everywhere.
@@ -309,7 +310,9 @@ def _tower_fwd(fn, layers, x, rate, seed):
     ((16384, 96), [256, 128, 64]), ((4096, 160), [256, 128, 64]),
     ((1, 96), [256, 128, 64]), ((1025, 96), [256, 128, 64]),
     ((40, 5, 96), [256, 128, 64]), ((333, 96), [64]),
-    ((257, 512), [512, 512, 64]), ((300, 37), [45, 3])])
+    ((257, 512), [512, 512, 64]), ((300, 37), [45, 3]),
+    ((129, 96), [256, 128, 64]), ((16383, 96), [256, 128, 64]),
+    ((16383, 160), [256, 128, 64])])
 def test_fused_tower_kernels_match_plain_version(cuda, shape, hidden, rate):
     from ncf_tpu_torch.ops import tower
 
@@ -344,6 +347,27 @@ def test_fused_tower_kernels_match_plain_version(cuda, shape, hidden, rate):
     for k, r in zip(kl, rl):
         assert float((k.grad - r.grad).abs().max()) <= \
             1e-4 * float(r.grad.abs().max()) + 1e-6
+
+
+@pytest.mark.cuda
+def test_fused_tower_backward_gives_equal_bits_call_to_call(cuda):
+    """B4b sums each weight gradient over tiles and blocks in a fixed
+    order: two calls on the same inputs give the same bits in dx and
+    every gradient."""
+    from ncf_tpu_torch.ops import tower
+
+    layers, x = _tower_case((16384, 96), [256, 128, 64], cuda, 7)
+    flat = [layer[a][b] for layer in layers
+            for a, b in (("dense", "w"), ("dense", "b"), ("norm", "scale"),
+                         ("norm", "bias"))]
+    seed = torch.tensor([987], dtype=torch.int32, device=cuda)
+    dy = torch.randn((16384, 64), device=cuda,
+                     generator=torch.Generator(device=cuda).manual_seed(8))
+    runs = [tower._bwd_cuda(x, dy, seed, flat, 0.2) for _ in range(2)]
+    (dx1, g1), (dx2, g2) = runs
+    assert torch.equal(dx1, dx2)
+    for a, b in zip(g1, g2):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
