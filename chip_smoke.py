@@ -7,15 +7,19 @@ Phases (each asserts; any failure exits non-zero and prints no result):
 
 1. the card's name and power limit, as ``nvidia-smi`` reports them;
 2. ``nvcc`` build of every kernel source of the package (one ``nvcc`` per
-   source, all started together), with its wall time; the tower kernels'
-   HMMA (tensor-core) instruction counts and resource use, read back with
-   ``cuobjdump`` (each instance of B4f and B4b must hold HMMAs);
+   source, all started together), with its wall time; the tower's and
+   B9's HMMA (tensor-core) instruction counts and resource use, read back
+   with ``cuobjdump`` (each instance of B4f, B4b and B9 must hold HMMAs,
+   and B9's none may spill to local memory);
 3. every kernel against its plain PyTorch version on the card, on the same
    inputs: the streaming top-k (B5) at the serving shapes, with tied
    scores and empty slots, and B5's and B8's answers for a user alone
    equal bit for bit to the same user's inside batches of 17 and 64; the
-   sampler (B1) and temporal sum (B3) at the training step's shapes and
-   at edge shapes; the scatter-add (B2) bit for bit against its plain
+   sampler (B1), on sorted and iid uniforms, and the temporal sum (B3) at
+   the training step's shapes and at edge shapes (CDFs summed on the CPU
+   and on the card, the latter's slots counted where their uniforms see
+   it out of order, zero-weight CDF runs, uniforms on entries, clipped,
+   NaN, duplicates, N of 3 to 65,536, catalogs over 12,288 items); the scatter-add (B2) bit for bit against its plain
    version run on the CPU and against a second call, in every mode and
    gradient dtype, at the step's shapes and at edge shapes (no ids, every
    id out of range, one id 81,920 times, a Zipf skew);
@@ -26,7 +30,12 @@ Phases (each asserts; any failure exits non-zero and prints no result):
    block, D 64 and 61, B 1, 64 and 1024, seg_top 1 and 2, k 1, 10 and 64,
    with ties, padded-row floors and fill slots; the row gather (B7) bit
    for bit (f32 and bf16, duplicate ids); the exact (B8) and segmented
-   (B9) top-k through ``compare_topk``;
+   (B9) top-k through ``compare_topk``, and B9's keys under the rule of
+   ``topk.segmax_key_violations`` (100,003 and 1M items, seg 128, 64 and
+   32, f32 and bf16 tables, B 1, 5, 64 and 65; the share of keys that
+   differ is logged; the keys of one TF32 product, the rule's control,
+   must break it in every case at 1M items and 5 users or more) and bit
+   for bit on small integers;
 4. serving at full width: ``configs/advanced_ncf_bigvocab.yaml`` (12M users
    x 4M items, random weights from a seeded generator) through
    ``ModelServer`` with ``retrieval="exact"`` and ``"fast"``: direct,
@@ -48,9 +57,11 @@ Phases (each asserts; any failure exits non-zero and prints no result):
    time from the profiler, per pass for B5 and B8 beside the times of
    their earlier CUDA-core versions) at
    the serving shapes, beside the least time the card could take (B5, B6,
-   B8, B9 at 4M items, B7 at NeuMF's scan; B5 and B8 against their
-   tensor-core route and against the f32 FMA rate of their old one; B6's
-   device time per pass beside its ``__dp4a`` version's);
+   B8, B9 at 4M items, B9 also at B=1, B7 at NeuMF's scan; B5, B8 and B9
+   against their tensor-core route and against the f32 FMA rate of their
+   old one; B6's device time per pass beside its ``__dp4a`` version's,
+   B9's beside its CUDA-core version's; B9's library yardstick is one
+   unchunked product, key pack and max per segment);
 6. the demo checkpoint served on the card against the port's CPU answers;
 7. training at full width, config A: ``configs/advanced_ncf_ml1m.yaml``
    as shipped (6040 users x 3706 items, batch 16384, bf16 compute, dropout
@@ -82,7 +93,8 @@ Phases (each asserts; any failure exits non-zero and prints no result):
    kernel's time (CUDA events, and device time from the profiler) beside
    its plain version, its library call (or, for B4, the plain layers of
    ``off``) and its bound (B2 with its sort's device time and, for the
-   item table, its atomic version's time).
+   item table, its atomic version's time; B1 for the pooled and the iid
+   draw, and B1 and B3 beside an empty kernel's time).
 
 Without a card, or run alone in a directory without the package, it
 prints why on standard output and standard error and exits 2.
@@ -122,12 +134,14 @@ CUDA_CORE_MS = {("topk_scores_streaming", 64, 4_000_000, "float32"): 2.470,
           ("topk_scores_streaming", 1, 4_000_000, "float32"): 0.730,
           ("topk_scores_streaming", 1024, 1_000_000, "bfloat16"): 9.451,
           ("topk_scores_pallas", 64, 4_000_000, "float32"): 9.002}
-# B6 (__dp4a on the CUDA cores) and B2 (f32 atomics) before their
-# redesigns: (CUDA-event ms, profiler device ms), NVIDIA H100 80GB HBM3,
-# 700 W; printed beside this run's
+# B6 (__dp4a on the CUDA cores), B2 (f32 atomics), B9, B4f and B4b before
+# their redesigns: (CUDA-event ms, profiler device ms), NVIDIA H100 80GB
+# HBM3, 700 W; printed beside this run's
 EARLIER_MS = {("topk_scores_streaming_int8", 64): (2.365, 1.820),
               ("topk_scores_streaming_int8", 1): (0.778, 0.553),
               ("onehot_scatter_add", "item"): (0.0671, 0.0163),
+              # B9 on the CUDA cores (f32 FMAs)
+              ("topk_scores_segmented", 64): (1.753, 1.747),
               # B4f and B4b on the CUDA cores (f32 FMAs), PR 7's run
               ("fused_tower_fwd", "[16384, 96]"): (0.2676, 0.2197),
               ("fused_tower_fwd", "[81920, 96]"): (1.1807, 0.9924),
@@ -300,6 +314,15 @@ def compare_topk(kv, ki, rv, ri, q, table, bias, what, cast_q=True):
     check(bool(((sk - sr).abs() <= tol)[swap].all()),
           f"{what}: ids differ where the scores are not tied")
     return float(err[v].max()), int(swap.sum())
+
+
+def tf32_rna(x):
+    """``x`` (f32 or bf16) rounded to TF32 as the tensor cores' ``cvt.rna``
+    rounds it: 10 mantissa bits, to nearest, ties away from zero."""
+    import torch
+
+    i = x.to(torch.float32).contiguous().view(torch.int32)
+    return ((i + 0x1000) & -0x2000).view(torch.float32)
 
 
 # ------------------------------------------------------------- phases
@@ -693,10 +716,86 @@ def phase_demo(torch, Config, ModelServer):
 
 # ------------------------------------------------------ training kernels
 
-def _cdf(torch, n, gen):
+def _cdf(torch, n, gen, zero_share=0.0, on_card=False):
+    """An f32 CDF on the card, summed on the CPU in order as the port's
+    ``make_sampling_cdf`` sums it (nondecreasing), or with ``on_card`` by
+    the card's scan, which adds in another order; ``zero_share`` of the
+    items, and the last 20, weigh nothing (runs of equal entries)."""
     w = torch.rand(n, generator=gen, device="cuda") + 1e-3
-    c = torch.cumsum(w, 0)
-    return c / c[-1]
+    if zero_share:
+        w[torch.rand(n, generator=gen, device="cuda") < zero_share] = 0.0
+        w[-20:] = 0.0
+    c = torch.cumsum(w if on_card else w.cpu(), 0)
+    return (c / c[-1]).cuda()
+
+
+def _b1_edge_uniforms(torch, cdf, N, gen):
+    """One round of N uniforms: a tenth on CDF entries, a tenth at or
+    above cdf[-1], a seventh equal (duplicates), one NaN."""
+    u = torch.rand(N, generator=gen, device="cuda")
+    on = torch.randint(0, cdf.shape[0], (N // 10,), generator=gen,
+                       device="cuda")
+    u[:N // 10] = cdf[on]
+    u[N // 10:N // 5] = cdf[-1] + u[N // 10:N // 5]
+    u[-(N // 7 + 1):] = u[0]
+    u[N // 2] = float("nan")
+    return u
+
+
+def _b1_cases(torch, sampler, gen, dev):
+    """B1 bit for bit with the plain version: the step's draws (2 rounds
+    with positives; the pooled draw of 65,536 sorted uniforms) over CDFs
+    summed on the CPU and on the card, and the edge cases (zero-weight
+    runs, uniforms on entries, clipped, NaN, duplicates, N of 65,536,
+    9,999, 1,001 and 3; catalogs of 100 to 100,003 items, over the 12,288
+    a block stages), sorted and unsorted uniforms.  A CDF summed on the
+    card may fall by an ulp here and there, outside the kernel's contract:
+    there the slots whose uniforms see it out of order
+    (``sampler.ordered_for``) are left out and counted.  Returns (cases,
+    entries where a CDF falls, slots left out, of them slots that
+    differ)."""
+    n = falls = left_out = differ = 0
+
+    def same(u, pos, cdf, I, what):
+        nonlocal left_out, differ
+        B = pos.shape[0]
+        NEG = u.shape[1] // B
+        want = sampler.tree_sample_ref(
+            u, pos[:, None].expand(B, NEG).reshape(-1), cdf, I)
+        got = sampler.tree_sample_negatives(u, pos, cdf, I).reshape(-1)
+        keep = sampler.ordered_for(u, cdf).all(0)
+        torch.cuda.synchronize()
+        check(torch.equal(got[keep], want[keep]),
+              f"B1 {what}: kernel != plain version")
+        left_out += int((~keep).sum())
+        differ += int((got != want).sum())
+        return 1
+
+    for I in (100, 3706, 100_003):
+        for on_card in (False, True):
+            cdf = _cdf(torch, I, gen, on_card=on_card)
+            falls += int((cdf[1:] < cdf[:-1]).sum())
+            for R, B, NEG, no_pos in ((2, 16384, 4, False),
+                                      (1, 65536, 1, True),
+                                      (1, 16384, 4, False), (3, 999, 2, False)):
+                u = torch.rand((R, B * NEG), generator=gen, device=dev)
+                pos = (torch.full((B,), -1, dtype=torch.int32, device=dev)
+                       if no_pos else
+                       torch.randint(0, I, (B,), generator=gen, device=dev,
+                                     dtype=torch.int32))
+                for order in ("sorted", "unsorted"):
+                    x = torch.sort(u, dim=1).values if order == "sorted" else u
+                    n += same(x, pos, cdf, I, f"I={I} R={R} B={B} {order} "
+                              f"cdf {'card' if on_card else 'cpu'}")
+    for I in (1682, 3706, 20_000):
+        cdf = _cdf(torch, I, gen, zero_share=0.3)
+        for N in (65536, 9999, 1001, 3):
+            u = _b1_edge_uniforms(torch, cdf, N, gen)
+            pos = torch.full((N,), -1, dtype=torch.int32, device=dev)
+            for order in ("sorted", "unsorted"):
+                x = torch.sort(u).values if order == "sorted" else u
+                n += same(x[None], pos, cdf, I, f"edges I={I} N={N} {order}")
+    return n, falls, left_out, differ
 
 
 def _scatter_cases(torch, scatter, gen, dev):
@@ -755,24 +854,11 @@ def phase_training_kernels_vs_plain(torch):
     gen = torch.Generator(device=dev).manual_seed(99)
     errs = {"tree_sample_negatives": 0.0, "onehot_scatter_add": 0.0,
             "fused_lookup_sum": 0.0}
-    n = 0
-    for I in (100, 3706, 100_003):               # shared and global CDF
-        cdf = _cdf(torch, I, gen)
-        for R, B, NEG, no_pos in ((2, 16384, 4, False), (1, 65536, 1, True),
-                                  (1, 16384, 4, False), (3, 999, 2, False)):
-            u = torch.rand((R, B * NEG), generator=gen, device=dev)
-            if no_pos:                           # the stratified pooled draw
-                u = torch.sort(u, dim=1).values
-            pos = (torch.full((B,), -1, dtype=torch.int32, device=dev)
-                   if no_pos else torch.randint(0, I, (B,), generator=gen,
-                                                device=dev, dtype=torch.int32))
-            got = sampler.tree_sample_negatives(u, pos, cdf, I)
-            torch.cuda.synchronize()
-            want = sampler.tree_sample_ref(
-                u, pos[:, None].expand(B, NEG).reshape(-1), cdf, I)
-            check(torch.equal(got.reshape(-1), want),
-                  f"B1 I={I} R={R} B={B}: kernel != plain version")
-            n += 1
+    n, falls, left_out, differ = _b1_cases(torch, sampler, gen, dev)
+    log(f"kernel_vs_plain: tree_sample_negatives {n} cases equal bit for "
+        f"bit, sorted and unsorted uniforms (the CDFs summed on the card "
+        f"fall at {falls} entries; {left_out} slots see them out of order, "
+        f"{differ} of those differ from the plain count)")
     t0 = time.perf_counter()
     n2 = _scatter_cases(torch, scatter, gen, dev)
     n += n2
@@ -797,12 +883,25 @@ def phase_training_kernels_vs_plain(torch):
     return errs
 
 
-def _tower_sass(kernels):
-    """Each kernel of the built ``fused_tower`` library (by its short
-    name, e.g. ``tower_bwd_kernel<4>``): its HMMA (tensor-core)
-    instructions in the SASS and the registers, stack, shared and local
-    memory that ``cuobjdump -res-usage`` reports.  Every instance of B4f
-    and B4b must hold HMMA instructions."""
+def _short_name(mangled):
+    """``tower_bwd_kernel<4>``, ``segmax_tc_kernel<bf16,64>``, ... from a
+    mangled kernel name."""
+    import re
+
+    m = re.search(r"(tower_(?:fwd|bwd)_kernel)ILi(\d+)E", mangled)
+    if m:
+        return f"{m.group(1)}<{m.group(2)}>"
+    m = re.search(r"(segmax_tc_kernel)I(f|13__nv_bfloat16)Li(\d+)E", mangled)
+    if m:
+        dtype = "f32" if m.group(2) == "f" else "bf16"
+        return f"{m.group(1)}<{dtype},{m.group(3)}>"
+    return "reduce_partials" if "reduce_partials" in mangled else mangled
+
+
+def _sass(kernels, source):
+    """Each kernel of the built library of ``source`` (by its short name):
+    its HMMA (tensor-core) instructions in the SASS and the registers,
+    stack, shared and local memory that ``cuobjdump -res-usage`` reports."""
     import re
     import shutil
 
@@ -810,32 +909,40 @@ def _tower_sass(kernels):
 
     tool = shutil.which("cuobjdump") or os.path.join(
         CUDA_HOME or "/usr/local/cuda", "bin", "cuobjdump")
-    lib = kernels._target("fused_tower")[1]
+    lib = kernels._target(source)[1]
     runs = [subprocess.run([tool, flag, lib], capture_output=True, text=True,
                            timeout=120) for flag in ("-sass", "-res-usage")]
     check(all(r.returncode == 0 for r in runs),
           f"cuobjdump failed: {[r.stderr.strip() for r in runs]}")
-
-    def short(mangled):
-        m = re.search(r"(tower_(?:fwd|bwd)_kernel)ILi(\d+)E", mangled)
-        return f"{m.group(1)}<{m.group(2)}>" if m else (
-            "reduce_partials" if "reduce_partials" in mangled else mangled)
-
     out, name = {}, None
     for line in runs[0].stdout.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            name = short(m.group(1))
+            name = _short_name(m.group(1))
             out[name] = {"hmma": 0}
         elif name is not None and "HMMA" in line:
             out[name]["hmma"] += 1
     for m in re.finditer(r"Function (\S+):\s*\n\s*(REG:\d+ STACK:\d+ "
                          r"SHARED:\d+ LOCAL:\d+)", runs[1].stdout):
-        out.setdefault(short(m.group(1)), {})["usage"] = m.group(2)
-    towers = [k for k in out if k.startswith("tower_")]
-    check(len(towers) == 6 and all(out[k].get("hmma", 0) > 0 for k in towers),
-          f"B4f/B4b without tensor-core instructions: {out}")
+        out.setdefault(_short_name(m.group(1)), {})["usage"] = m.group(2)
     return out
+
+
+def phase_sass(kernels):
+    """Every instance of B4f, B4b and B9 must hold HMMA instructions, and
+    B9's none spill to local memory."""
+    tower = _sass(kernels, "fused_tower")
+    towers = [k for k in tower if k.startswith("tower_")]
+    check(len(towers) == 6 and all(tower[k].get("hmma", 0) > 0
+                                   for k in towers),
+          f"B4f/B4b without tensor-core instructions: {tower}")
+    segmax = _sass(kernels, "topk_segmax")
+    b9 = [k for k in segmax if k.startswith("segmax_tc_kernel")]
+    check(len(b9) == 8 and all(segmax[k].get("hmma", 0) > 0 for k in b9),
+          f"B9 without tensor-core instructions: {segmax}")
+    check(all(segmax[k].get("usage", "").endswith("LOCAL:0") for k in b9),
+          f"B9 spills to local memory: {segmax}")
+    return tower, segmax
 
 
 def _tower_layers(torch, d0, hidden, gen):
@@ -1079,7 +1186,7 @@ def phase_training(torch):
     B4f and B4b once a step under ``fused_tower: auto``.  Returns
     (launches per kernel over the phase, summary)."""
     from ncf_tpu_torch.models import get_model, layers
-    from ncf_tpu_torch.ops import embedding, tower
+    from ncf_tpu_torch.ops import embedding, sampler, tower
 
     t0 = time.perf_counter()
     cfg, it, consts, inter, _ = _training_setup(torch)
@@ -1511,15 +1618,22 @@ def _time_training_kernels(torch, batch, negs, params, cfg, consts):
             pick = torch.where(d[r] != pos_bn, d[r], pick)
         return pick
 
+    def empty():                 # one thread that spins for no cycles
+        torch.cuda._sleep(0)
+
+    # the card's floor for one launch, beside the µs-sized kernels B1, B3
+    floor = {"launch_floor_ms": cuda_ms(empty, 50),
+             "launch_floor_device_ms": device_split(empty)[0]}
     pos = torch.as_tensor(batch["item_ids"], device=dev)
-    for what, u, p in (
-            ("stratified", stratified_uniforms(gen, B * NEG, dev)[None],
-             torch.full((B * NEG,), -1, dtype=torch.int32, device=dev)),
-            ("iid", torch.rand((2, B * NEG), generator=gen, device=dev),
-             pos)):
+    pooled = stratified_uniforms(gen, B * NEG, dev)[None]
+    no_pos = torch.full((B * NEG,), -1, dtype=torch.int32, device=dev)
+    iid = torch.rand((2, B * NEG), generator=gen, device=dev)
+    for what, u, p in (("stratified", pooled, no_pos), ("iid", iid, pos)):
         NN = u.shape[1] // p.shape[0]
         pos_bn = p[:, None].expand(-1, NN).reshape(-1)
-        nbytes = u.numel() * 4 + p.numel() * 4 + I * 4 + u.shape[1] * 4
+        # uniforms, CDF and ids; the positives only with a second round
+        nbytes = (u.numel() * 4 + (p.numel() * 4 if u.shape[0] > 1 else 0)
+                  + I * 4 + u.shape[1] * 4)
         ops = u.numel() * (I.bit_length() + 1)      # binary-search probes
         bound, by = _bound(nbytes, ops, f32)
         call = functools.partial(sampler.tree_sample_negatives, u, p, cdf, I)
@@ -1529,7 +1643,7 @@ def _time_training_kernels(torch, batch, negs, params, cfg, consts):
                      "plain_ms": cuda_ms(lambda: sampler.tree_sample_ref(
                          u, pos_bn, cdf, I), 5, warmup=1),
                      "library_ms": cuda_ms(lib, 50),
-                     "bound_ms": bound, "bound_by": by})
+                     "bound_ms": bound, "bound_by": by, **floor})
 
     # B2 at each of the step's seven launches (``fast``: bf16 rounding
     # where the reference runs its kernel, split for the temporal tables),
@@ -1596,7 +1710,7 @@ def _time_training_kernels(torch, batch, negs, params, cfg, consts):
                  "plain_ms": cuda_ms(lambda: temporal_sum.lookup_sum_ref(
                      ids, tables), 50),
                  "library_ms": cuda_ms(lib, 50),
-                 "bound_ms": bound, "bound_by": by})
+                 "bound_ms": bound, "bound_by": by, **floor})
     return rows
 
 
@@ -1791,7 +1905,10 @@ def phase_training_timing(torch):
                 f"{r['philox_ms']!r} ms at the int32 rate"
                 if "pr7_ms" in r else "") + (
                 f"; f32 FMA bound {r['bound_f32_fma_ms']!r} ms"
-                if "bound_f32_fma_ms" in r else ""))
+                if "bound_f32_fma_ms" in r else "") + (
+                f"; an empty kernel {r['launch_floor_ms']!r} ms (device "
+                f"{r['launch_floor_device_ms']!r} ms)"
+                if "launch_floor_ms" in r else ""))
     log("training_timing_json: " + json.dumps(rows))
     log("training_json: " + json.dumps(steps))
     del main_params
@@ -1897,6 +2014,10 @@ def phase_slice4_kernels_vs_plain(torch, topk):
 
     t0 = time.perf_counter()
     n8 = n9 = swaps = 0
+    key_share = {}                       # B9: share of keys that differ
+    # the rule's control: keys from one TF32 product (both operands rounded
+    # to TF32, products exact in f32, summed in f32), held to the same rule
+    control = {}
     for I in (100_003, 1_000_000):
         t32 = torch.randn((I, 64), generator=gen, device=dev)
         b = torch.randn((I,), generator=gen, device=dev)
@@ -1930,7 +2051,31 @@ def phase_slice4_kernels_vs_plain(torch, topk):
                     errs["topk_scores_segmented"] = max(
                         errs["topk_scores_segmented"], e)
                     swaps, n9 = swaps + s, n9 + 1
-        del t32, b
+        # the keys themselves, under the rule of csrc/topk_segmax.cu, at
+        # batches on both sides of the user tiles, both table types
+        t_one = tf32_rna(t32)            # a bf16 table is TF32 already
+        for B in (1, 5, 64, 65):
+            q = torch.randn((B, 64), generator=gen, device=dev)
+            for table in (t32, t32.to(torch.bfloat16)):
+                one_t = t_one if table.dtype == torch.float32 else table
+                for seg in (128, 64, 32):
+                    for bias in ((b, None) if B == 64 else (b,)):
+                        keys = topk._segmax_cuda(q, table, bias, 2048, seg)
+                        torch.cuda.synchronize()
+                        want = topk.segmax_keys_ref(q, table, bias, 2048, seg)
+                        what = (f"I={I} B={B} {str(table.dtype)[6:]} "
+                                f"seg={seg} bias={bias is not None}")
+                        differ, bad = topk.segmax_key_violations(
+                            q, table, bias, keys, want, seg)
+                        check(bad == 0, f"B9 keys {what}: {bad} of {differ} "
+                              "differing keys outside the rule")
+                        key_share[what] = differ / keys.numel()
+                        one = topk.segmax_keys_ref(tf32_rna(q), one_t, bias,
+                                                   2048, seg)
+                        control[what] = topk.segmax_key_violations(
+                            q, table, bias, one, want, seg)[1]
+                        n9 += 1
+        del t32, t_one, b
         torch.cuda.empty_cache()
     # small integers: exact sums, so values, ids and keys are equal; items
     # with a NEG_INF bias never surface, empty slots repeat the fill id
@@ -1956,6 +2101,16 @@ def phase_slice4_kernels_vs_plain(torch, topk):
         f"topk_scores_segmented {n9} cases ok, max_abs_err "
         f"{json.dumps(errs)}, near-tie id swaps {swaps} "
         f"({time.perf_counter() - t0:.1f} s)")
+    log("kernel_vs_plain: B9 share of keys that differ from the plain "
+        "version's (each within the rule) " + json.dumps(key_share))
+    log("kernel_vs_plain: B9 rule control, keys of one TF32 product outside "
+        "the rule (the kernel: 0 in every case) " + json.dumps(control))
+    # at 1M items and 5 users or more, one TF32 product must break the rule
+    # in every case (6 to 482 segments in the H100 runs), as the kernel
+    # never does: the rule tells the precision the tile pays for
+    passed = [w for w, v in control.items()
+              if w.startswith("I=1000000 ") and " B=1 " not in w and v == 0]
+    check(not passed, f"B9: one TF32 product keeps the key rule in {passed}")
     return errs
 
 
@@ -2348,17 +2503,33 @@ def phase_timing_slice4(torch, topk):
                  "library_ms": cuda_ms(lib_b8, 5),
                  "library_device_ms": device_split(lib_b8)[0],
                  **_tc_bounds(nbytes + 64 * k * 8, 64, I, D, "float32")})
-    bound, by = _bound(nbytes + 64 * (I // 128) * 4, 2.0 * 64 * I * D, f32)
-    call = functools.partial(topk._segmax_cuda, q, items, bias, 2048, 128)
-    rows.append({"kernel": "topk_scores_segmented",
-                 "shape": f"B=64 I={I} D={D} f32 seg 128",
-                 "ms": cuda_ms(call, 10), **_device_fields(call),
-                 "plain_ms": cuda_ms(lambda: topk.segmax_keys_ref(
-                     q, items, bias, 2048, 128), 3, warmup=1),
-                 "library_ms": None,
-                 "with_topk_and_rescore_ms": cuda_ms(
-                     lambda: topk.topk_scores_segmented(q, items, k, bias), 10),
-                 "bound_ms": bound, "bound_by": by})
+    off = torch.arange(128, dtype=torch.int32, device=dev)
+
+    def lib_b9(q):
+        # the same keys from one unchunked product (1 GB of scores at
+        # B=64): q @ items.T + bias, the key pack and a max per segment
+        i = torch.addmm(bias, q, items.T).view(torch.int32)
+        mono = i ^ ((i >> 31) & 0x7FFFFFFF)
+        return ((mono & -128).view(q.shape[0], -1, 128) | off).amax(2)
+
+    for B in (64, 1):
+        q = qs[:B]
+        nkeys = B * (-(-I // 2048) * 2048 // 128)
+        call = functools.partial(topk._segmax_cuda, q, items, bias, 2048, 128)
+        lib = functools.partial(lib_b9, q)
+        rows.append({"kernel": "topk_scores_segmented",
+                     "shape": f"B={B} I={I} D={D} f32 seg 128",
+                     "ms": cuda_ms(call, 10), **_device_fields(call, lib),
+                     "earlier_ms": EARLIER_MS.get(
+                         ("topk_scores_segmented", B)),
+                     "plain_ms": cuda_ms(lambda: topk.segmax_keys_ref(
+                         q, items, bias, 2048, 128), 3, warmup=1),
+                     "library_ms": cuda_ms(lib, 5),
+                     "with_topk_and_rescore_ms": cuda_ms(
+                         lambda: topk.topk_scores_segmented(q, items, k,
+                                                            bias), 10),
+                     **_tc_bounds(I * D * 4 + I * 4 + B * D * 4 + nkeys * 4,
+                                  B, I, D, "float32")})
     del items, bias, qs, q
     torch.cuda.empty_cache()
     table = torch.randn((3706, 64), generator=gen, device=dev)
@@ -2382,7 +2553,11 @@ def phase_timing_slice4(torch, topk):
                f"{r['bound_f32_fma_ms']!r} ms)" if "cuda_core_ms" in r
                else f" (__dp4a version: {r['dp4a_ms']!r} ms [device]; "
                f"device by pass {json.dumps(r['device_passes_ms'])})"
-               if "dp4a_ms" in r else "")
+               if "dp4a_ms" in r else
+               f" (CUDA-core version: {r['earlier_ms']!r} ms [device]; f32 "
+               f"FMA bound {r['bound_f32_fma_ms']!r} ms; with top-k and "
+               f"rescore {r['with_topk_and_rescore_ms']!r} ms)"
+               if "earlier_ms" in r else "")
         log(f"timing: {r['kernel']} [{r['shape']}] kernel {r['ms']!r} ms "
             f"(device {r['device_ms']!r} ms){was}, plain {r['plain_ms']!r} "
             f"ms, library {r['library_ms']!r} ms (device "
@@ -2431,7 +2606,9 @@ def main() -> int:
     secs = _kernels.build_all()
     log(f"build: nvcc {' '.join(_kernels.NVCC_FLAGS)} "
         f"{', '.join(s + '.cu' for s in _kernels.SOURCES)} in {secs:.1f} s")
-    log("build: fused_tower SASS " + json.dumps(_tower_sass(_kernels)))
+    tower_sass, segmax_sass = phase_sass(_kernels)
+    log("build: fused_tower SASS " + json.dumps(tower_sass))
+    log("build: topk_segmax SASS " + json.dumps(segmax_sass))
 
     t0 = time.perf_counter()
     max_err = {"topk_scores_streaming": phase_kernel_vs_plain(torch, topk)}

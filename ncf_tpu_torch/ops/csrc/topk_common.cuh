@@ -1,10 +1,7 @@
 // Device code shared by the port's top-k kernels (B5 topk_streaming.cu,
 // B6 topk_streaming_int8.cu, B8 topk_exact.cu, B9 topk_segmax.cu):
 //
-//   score_tile      a TU-user x 128-item tile of q . T (+ bias) as a
-//                   register-tiled f32 FMA product, operands staged through
-//                   shared memory in 32-deep slices of D (B9);
-//   tc::            the tensor-core tile of B5 and B8: 128 items x TU
+//   tc::            the tensor-core tile of B5, B8 and B9: 128 items x TU
 //                   users with mma.sync (split-TF32 for f32 tables, bf16
 //                   for bf16), the table streamed through a cp.async ring;
 //   select_top_keys a block-wide MSB-first radix select of the k largest
@@ -25,14 +22,6 @@
 namespace ncf {
 
 constexpr float kNegInf = -3.0e38f;
-constexpr int kChunk = 128;    // items per scoring tile
-constexpr int kDk = 32;        // D-slice staged per step
-constexpr int kThreads = 256;  // scoring threads
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 // order-preserving float -> uint32 (a larger float gives a larger word)
 __device__ __forceinline__ unsigned int mono_f32(float v) {
@@ -71,87 +60,6 @@ __device__ __forceinline__ void insert2(V v, int o, V& v1, int& o1, V& v2,
     v2 = v1; o2 = o1; v1 = v; o1 = o;
   } else if (better(v, o, v2, o2)) {
     v2 = v; o2 = o;
-  }
-}
-
-// floats of shared staging score_tile needs for TU users
-template <int TU>
-__host__ __device__ constexpr int stage_floats() {
-  return kDk * (TU + 1 + kChunk + 1);
-}
-
-// out[ul * out_stride + il] = q[u0 + ul] . T[row0 + il] (+ bias) for the
-// TU x 128 tile, or `pad` where row0 + il >= n_rows; users >= B score 0.
-// Each thread owns UM users x IM items, strided (user ty + m*TY, item
-// tx + j*TX) so shared reads are conflict-free.  `out` may alias `stage`:
-// the product ends with a barrier before the epilogue writes.
-template <typename TQ, typename TT, int TU, int UM, int IM>
-__device__ __forceinline__ void score_tile(
-    const TQ* __restrict__ q, const TT* __restrict__ table,
-    const float* __restrict__ bias, int B, int D, long long n_rows, int u0,
-    long long row0, float pad, float* stage, float* out, int out_stride) {
-  constexpr int TX = kChunk / IM;
-  constexpr int TY = TU / UM;
-  static_assert(TX * TY == kThreads, "thread tiling must cover the block");
-  constexpr int QSTR = TU + 1;
-  constexpr int TSTR = kChunk + 1;
-  float* Qs = stage;               // [kDk][QSTR]
-  float* Ts = stage + kDk * QSTR;  // [kDk][TSTR]
-
-  const int tid = threadIdx.x;
-  const int tx = tid % TX;
-  const int ty = tid / TX;
-
-  float acc[UM][IM];
-#pragma unroll
-  for (int m = 0; m < UM; ++m)
-#pragma unroll
-    for (int j = 0; j < IM; ++j) acc[m][j] = 0.f;
-
-  for (int d0 = 0; d0 < D; d0 += kDk) {
-    for (int e = tid; e < kChunk * kDk; e += kThreads) {
-      int r = e / kDk, c = e % kDk;
-      long long row = row0 + r;
-      int d = d0 + c;
-      float v = 0.f;
-      if (row < n_rows && d < D) v = to_f(table[row * D + d]);
-      Ts[c * TSTR + r] = v;
-    }
-    for (int e = tid; e < TU * kDk; e += kThreads) {
-      int r = e / kDk, c = e % kDk;
-      int u = u0 + r;
-      int d = d0 + c;
-      float v = 0.f;
-      if (u < B && d < D) v = to_f(q[(long long)u * D + d]);
-      Qs[c * QSTR + r] = v;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int c = 0; c < kDk; ++c) {
-      float a[UM], b[IM];
-#pragma unroll
-      for (int m = 0; m < UM; ++m) a[m] = Qs[c * QSTR + ty + m * TY];
-#pragma unroll
-      for (int j = 0; j < IM; ++j) b[j] = Ts[c * TSTR + tx + j * TX];
-#pragma unroll
-      for (int m = 0; m < UM; ++m)
-#pragma unroll
-        for (int j = 0; j < IM; ++j) acc[m][j] = fmaf(a[m], b[j], acc[m][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int m = 0; m < UM; ++m) {
-#pragma unroll
-    for (int j = 0; j < IM; ++j) {
-      int ul = ty + m * TY;
-      int il = tx + j * TX;
-      long long row = row0 + il;
-      float v = pad;
-      if (row < n_rows) v = acc[m][j] + (bias ? bias[row] : 0.f);
-      out[ul * out_stride + il] = v;
-    }
   }
 }
 
@@ -248,7 +156,7 @@ __device__ int select_top_keys(const unsigned long long* __restrict__ kb,
 }
 
 // ----------------------------------------------------------------------
-// Tensor-core scoring of B5 and B8.
+// Tensor-core scoring of B5, B8 and B9.
 //
 // score[item, user] = sum_d T[item, d] q[user, d] for a tile of 128 items
 // (the M side: 16 rows a warp, 8 warps) x TU users (the N side: TU / 8
@@ -261,7 +169,7 @@ __device__ int select_top_keys(const unsigned long long* __restrict__ kb,
 //     product, far inside the callers' 1e-5 sum|q.v| + 1e-6; one TF32
 //     product (5e-4) would not be.  Small integers split with lo = 0 and
 //     stay exact, so ties stay ties.
-//   bf16 table, f32 queries (B8): a bf16 value is exact in TF32, so two
+//   bf16 table, f32 queries (B8, B9): a bf16 value is exact in TF32, so two
 //     products, lo.t + hi.t.
 //   bf16 table, bf16 queries (B5 casts them): one m16n8k16 bf16 product
 //     with f32 accumulation; the products are exact.
@@ -273,10 +181,10 @@ __device__ int select_top_keys(const unsigned long long* __restrict__ kb,
 // is scored, cp.async copies the next (16-byte copies where rows and
 // pointer allow, else 4-byte, else element copies for bf16 rows of odd
 // length).  A block keeps one tile of users and walks the item tiles
-// walker, walker + nwalk, ...; the tile's 128 biases come with it.  After
-// the product the tile's scores [TU][kSStride] (skewed, score_slot)
-// overwrite the stage just read and the kernel's epilogue reads them
-// there.
+// walker, walker + nwalk, ...; the tile's 128 biases come with it.  B9's
+// epilogue reads the C fragments in registers (stream_fragments); B5's
+// and B8's read the tile's scores [TU][kSStride] (skewed, score_slot),
+// which overwrite the stage just read after the product (stream_tiles).
 namespace tc {
 
 constexpr int kItems = 128;     // items per tile
@@ -602,17 +510,21 @@ __device__ __forceinline__ void store_scores(const float (&acc)[TU / 8][4],
   }
 }
 
-// Walk this block's item tiles (walker, walker + nwalk, ...) through the
-// ring and call epi(S, row0) on each tile's scores.  The queries must be
-// staged and visible (a barrier) before the call.
+// Walk this block's item tiles (walker, walker + nwalk, ...) of the
+// walk_rows >= n_rows rows through the ring and call epi(acc, st, row0)
+// with each tile's C fragments (tile_product's layout); the stage st
+// still holds the tile's rows and biases during the call, and rows past
+// n_rows hold no table row.  Every thread makes the call, so epi may
+// synchronise the block.  The queries must be staged and visible (a
+// barrier) before the call.
 template <typename TQ, typename TT, int TU, typename Epi>
-__device__ void stream_tiles(const TT* __restrict__ table,
-                             const float* __restrict__ bias, int D,
-                             long long n_rows, int walker, int nwalk,
-                             int mode, float pad, const Geom& g,
-                             const unsigned char* qs, unsigned char* ring,
-                             Epi&& epi) {
-  const long long ntiles = (n_rows + kItems - 1) / kItems;
+__device__ void stream_fragments(const TT* __restrict__ table,
+                                 const float* __restrict__ bias, int D,
+                                 long long n_rows, long long walk_rows,
+                                 int walker, int nwalk, int mode,
+                                 const Geom& g, const unsigned char* qs,
+                                 unsigned char* ring, Epi&& epi) {
+  const long long ntiles = (walk_rows + kItems - 1) / kItems;
   auto load_tile = [&](long long i) {
     const long long tile = walker + i * nwalk;
     if (tile < ntiles)
@@ -629,16 +541,33 @@ __device__ void stream_tiles(const TT* __restrict__ table,
     unsigned char* st = ring + (i % kStages) * g.stage_bytes;
     float acc[TU / 8][4];
     tile_product<TQ, TT, TU>(st, qs, g, acc);
-    __syncthreads();
-    const long long row0 = (walker + i * nwalk) * kItems;
-    float* S = (float*)st;
-    store_scores<TU>(acc, bias ? (const float*)(st + g.bias_off) : nullptr,
-                     n_rows, row0, pad, S);
-    __syncthreads();
-    epi((const float*)S, row0);
+    epi(acc, st, (walker + i * nwalk) * kItems);
     __syncthreads();
   }
   cp_async_wait<0>();
+}
+
+// stream_fragments with the tile's scores written to shared memory first:
+// epi(S, row0) reads them at S[user * kSStride + score_slot(item)], the
+// rows past n_rows holding `pad`
+template <typename TQ, typename TT, int TU, typename Epi>
+__device__ void stream_tiles(const TT* __restrict__ table,
+                             const float* __restrict__ bias, int D,
+                             long long n_rows, int walker, int nwalk,
+                             int mode, float pad, const Geom& g,
+                             const unsigned char* qs, unsigned char* ring,
+                             Epi&& epi) {
+  stream_fragments<TQ, TT, TU>(
+      table, bias, D, n_rows, n_rows, walker, nwalk, mode, g, qs, ring,
+      [&](const float (&acc)[TU / 8][4], unsigned char* st, long long row0) {
+        __syncthreads();  // every warp has read the stage
+        float* S = (float*)st;
+        store_scores<TU>(acc,
+                         bias ? (const float*)(st + g.bias_off) : nullptr,
+                         n_rows, row0, pad, S);
+        __syncthreads();
+        epi((const float*)S, row0);
+      });
 }
 
 }  // namespace tc

@@ -8,10 +8,18 @@ not its row's positive, else the last round's draw.  On a nondecreasing
 CDF that count is what the TPU kernel's 128-ary tree descent computes, so
 the ids are identical given the same uniforms.
 
-CUDA tensors launch ``csrc/tree_sampler.cu`` (a binary search per draw)
-or raise; CPU tensors take ``tree_sample_ref``, the plain version, which
-counts by comparison.  The TPU's 32768-item gate (a VMEM limit) has no
-counterpart: the kernel serves every vocabulary.
+CUDA tensors launch ``csrc/tree_sampler.cu`` or raise; CPU tensors take
+``tree_sample_ref``, the plain version, which counts by comparison.  Each
+block of the kernel stages only the stretch of the CDF its run of
+uniforms falls in: a few dozen entries when the uniforms ascend, as the
+stratified sampler's pooled draw gives them, the whole CDF for iid
+uniforms.  The TPU's 32768-item gate (a VMEM limit) has no counterpart:
+the kernel serves every vocabulary.
+
+The CDF must be nondecreasing, as ``data.sampler.make_sampling_cdf`` (a
+sequential sum on the CPU) makes it: the kernel searches it, and where it
+decreases a search and the plain version's count may differ, for the
+uniforms that ``ordered_for`` marks False.
 """
 
 from __future__ import annotations
@@ -51,6 +59,24 @@ def tree_sample_ref(u: torch.Tensor, pos: torch.Tensor, cdf: torch.Tensor,
     return _reject(_draws_ref(u, cdf, num_items), pos.to(torch.int32))
 
 
+def ordered_for(u: torch.Tensor, cdf: torch.Tensor) -> torch.Tensor:
+    """bool of ``u``'s shape: True where ``cdf`` is ordered with respect to
+    the uniform (no i < j with ``cdf[i] > u >= cdf[j]``), so that any
+    search of it counts ``#{i : cdf[i] <= u}`` as the plain version does.
+    A nondecreasing CDF is ordered for every uniform; one summed by a
+    parallel scan may fall by an ulp here and there, and is not ordered
+    for the uniforms in those gaps."""
+    head = torch.cummax(cdf, 0).values[:-1]          # max of cdf[:k]
+    tail = torch.flip(torch.cummin(torch.flip(cdf, (0,)), 0).values,
+                      (0,))[1:]                      # min of cdf[k:]
+    gap = head > tail
+    lo, hi = tail[gap], head[gap]
+    inside = torch.zeros(u.numel(), dtype=torch.bool, device=u.device)
+    for a, b in zip(lo.tolist(), hi.tolist()):       # a few gaps at most
+        inside |= (u.reshape(-1) >= a) & (u.reshape(-1) < b)
+    return ~inside.reshape(u.shape)
+
+
 def _tree_sample_cuda(u, pos, cdf, num_items, neg):
     if u.dtype != torch.float32 or cdf.dtype != torch.float32:
         raise TypeError("the sampler kernel takes f32 uniforms and CDF")
@@ -74,8 +100,8 @@ def _tree_sample_cuda(u, pos, cdf, num_items, neg):
 def tree_sample_negatives(u: torch.Tensor, pos_items: torch.Tensor,
                           cdf: torch.Tensor, num_items: int) -> torch.Tensor:
     """Fused draw and reject: u f32 [R, B, NEG] or [R, B*NEG], pos_items
-    int [B] -> int32 [B, NEG] (the reference's signature, without
-    ``interpret``).  Each kernel launch adds one to
+    int [B], cdf f32 nondecreasing -> int32 [B, NEG] (the reference's
+    signature, without ``interpret``).  Each kernel launch adds one to
     ``tree_sample_negatives.launches``."""
     if u.dim() == 3:
         R, B, NEG = u.shape

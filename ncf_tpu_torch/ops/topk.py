@@ -22,10 +22,10 @@ tensors:
   (name kept from the reference, where XLA ran it).
 - ``rescore_exact``     — exact re-score + re-sort of candidates.
 
-B5 and B8 score on the tensor cores (``csrc/topk_common.cuh``: split-TF32
-``mma.sync`` for f32 tables, bf16 for bf16, the table streamed through a
-``cp.async`` ring) and take rows of at most 128 values (``ValueError``
-above, on CUDA tensors).
+B5, B8 and B9 score on the tensor cores (``csrc/topk_common.cuh``:
+split-TF32 ``mma.sync`` for f32 tables, bf16 for bf16, the table streamed
+through a ``cp.async`` ring) and take rows of at most 128 values
+(``ValueError`` above, on CUDA tensors).
 
 Ties: the reference's ``lax.top_k`` breaks ties to the lower index and
 ``torch.topk`` promises nothing, so the plain paths sort stably.  The
@@ -58,7 +58,7 @@ from ncf_tpu_torch.ops import _kernels
 
 NEG_INF = -3.0e38
 _MAX_STREAM_K = 64     # the merge keeps at most 64 winners per user
-_MAX_TC_DIM = 128      # widest row B5's and B8's tensor-core tile stages
+_MAX_TC_DIM = 128      # widest row the tensor-core tile stages (B5, B8, B9)
 _MAX_SCRATCH_BYTES = 1 << 30
 _STREAM_VMEM_BUDGET = 12 * 1024 * 1024   # the reference's block sizing
 
@@ -872,6 +872,36 @@ def segmax_keys_ref(queries, items, bias, block_items: int = 2048,
     return torch.cat(out, dim=1)
 
 
+def segmax_key_violations(queries, items, bias, got, want, seg_width):
+    """The tolerance of the segmented kernel's keys (``csrc/topk_segmax.cu``
+    sums in another order than ``segmax_keys_ref``, so a key may move):
+    where ``got`` and ``want`` differ, both winners are decoded from
+    segment and offset and scored in f64, and the plain winner's score
+    s_P may stand at most ``seg_width * ulp(|s_P| + 2 eps) + 2 eps`` above
+    the kernel's, ``eps = 1e-5 * max sum_d |q_d v_d| + 1e-6`` (the
+    tensor-core tile's stated error; the ulp is f32's).  Returns (keys
+    that differ, of them those outside the rule)."""
+    u, s = torch.nonzero(got != want, as_tuple=True)
+    if u.numel() == 0:
+        return 0, 0
+    I = items.shape[0]
+
+    def score(key):
+        i = s.long() * seg_width + (key[u, s] & (seg_width - 1)).long()
+        ic = i.clamp(max=I - 1)
+        prod = queries[u].double() * items[ic].double()
+        sc = prod.sum(1) + (0 if bias is None else bias[ic].double())
+        return (torch.where(i < I, sc, torch.full_like(sc, -float("inf"))),
+                prod.abs().sum(1))
+
+    (sk, mk), (sp, mp) = score(got), score(want)
+    eps = 1e-5 * torch.maximum(mk, mp) + 1e-6
+    at = (sp.abs() + 2 * eps).float()
+    ulp = torch.nextafter(at, torch.full_like(at, float("inf"))) - at
+    ok = sp - sk <= seg_width * ulp.double() + 2 * eps
+    return u.numel(), int((~ok).sum())
+
+
 def _segmax_cuda(q, items, bias, block_items, seg_width):
     B, D = q.shape
     I = items.shape[0]
@@ -879,6 +909,9 @@ def _segmax_cuda(q, items, bias, block_items, seg_width):
     if seg_width not in (32, 64, 128):
         raise ValueError(f"segmented kernel takes seg_width 32/64/128, "
                          f"got {seg_width}")
+    if D > _MAX_TC_DIM:
+        raise ValueError(f"segmented kernel takes dim <= {_MAX_TC_DIM}, "
+                         f"got {D}")
     ipad = -(-I // block_items) * block_items
     keys = torch.empty((B, ipad // seg_width), dtype=torch.int32, device=dev)
     if B == 0:
@@ -931,9 +964,12 @@ def topk_scores_segmented(
     to the bits above the packed offset (among equal quantized scores the
     highest offset wins); the top-k candidate keys are rescored exactly.
     The per-segment keys come from ``csrc/topk_segmax.cu`` on CUDA
-    tensors (each launch adds one to ``topk_scores_segmented.launches``)
-    and from ``segmax_keys_ref`` on CPU tensors; the top-k and the
-    rescore run as plain PyTorch on both, as in the reference."""
+    tensors (the tensor-core tile; rows of at most 128 values; each
+    launch adds one to ``topk_scores_segmented.launches``) and from
+    ``segmax_keys_ref`` on CPU tensors; the top-k and the rescore run as
+    plain PyTorch on both, as in the reference.  The kernel sums in
+    another order than the plain version, so a key may differ within the
+    rule stated in its source."""
     if seg_width <= 0 or seg_width & (seg_width - 1):
         raise ValueError("seg_width must be a power of two")
     q, t, b = _exact_operands(queries, items, bias)

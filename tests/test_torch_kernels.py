@@ -12,7 +12,8 @@ Tolerances:
   sums in another order); ids equal wherever the two rivals' exact scores
   differ by more than that;
 - tree sampler (B1) and temporal sum (B3): equal, bit for bit (the same
-  comparisons, the same order of f32 additions);
+  comparisons, the same order of f32 additions), B1 on sorted and iid
+  uniforms;
 - scatter-add (B2) and the row gather's backward through it: equal, bit
   for bit, to the plain version on the CPU and from run to run (both add
   each row's values in flattened order, in f32);
@@ -20,7 +21,10 @@ Tolerances:
   (integer arithmetic, so any order of the sums; a copy);
 - exact top-k (B8) and the segmented top-k (B9, after its exact rescore):
   as the streaming top-k, with the queries in f32 (both keep them so);
-  on small-integer data, whose sums are exact, equal;
+  on small-integer data, whose sums are exact, equal; B9's keys where
+  they differ from the plain version's: the plain winner's f64 score at
+  most seg_width * ulp(|s| + 2 eps) + 2 eps above the kernel's, eps =
+  1e-5 * sum_d |q_d v_d| + 1e-6 (``topk.segmax_key_violations``);
 - B5 and B8 (tensor-core tiles): a user's answer equal bit for bit alone
   and inside a batch, and from one call to the next;
 - fused tower (B4f, B4b): identical dropout zeros; outputs within 1e-4
@@ -157,16 +161,27 @@ def test_streaming_kernel_rejects_what_it_does_not_take(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("num_items", (100, 3706, 100_003))
 @pytest.mark.parametrize("rounds", (1, 2))
-def test_tree_sampler_kernel_equals_plain_version(cuda, num_items, rounds):
+@pytest.mark.parametrize("sort", (False, True))
+@pytest.mark.parametrize("cdf_on", ("card", "cpu"))
+def test_tree_sampler_kernel_equals_plain_version(cuda, num_items, rounds,
+                                                  sort, cdf_on):
+    """Sorted and iid uniforms; the CDF summed on the CPU in order, as
+    ``make_sampling_cdf`` sums it (every slot equal), or by the card's
+    parallel scan, which may fall by an ulp here and there: then equal on
+    every slot whose uniforms see it ordered (``sampler.ordered_for``),
+    the kernel's contract."""
     from ncf_tpu_torch.ops import sampler
 
     gen = torch.Generator(device=cuda).manual_seed(num_items + rounds)
     w = torch.rand(num_items, generator=gen, device=cuda) + 1e-3
-    cdf = torch.cumsum(w, 0)
+    cdf = (torch.cumsum(w, 0) if cdf_on == "card"
+           else torch.cumsum(w.cpu(), 0).to(cuda))
     cdf = cdf / cdf[-1]
     for B, NEG in ((16384, 4), (65536, 1), (37, 3)):
         u = torch.rand((rounds, B * NEG), generator=gen, device=cuda)
         u[0, :3] = torch.stack([cdf[0], cdf[-1], cdf[num_items // 2]])
+        if sort:
+            u = torch.sort(u, dim=1).values
         pos = torch.randint(-1, num_items, (B,), generator=gen, device=cuda,
                             dtype=torch.int32)
         n0 = sampler.tree_sample_negatives.launches.value
@@ -174,8 +189,42 @@ def test_tree_sampler_kernel_equals_plain_version(cuda, num_items, rounds):
         assert sampler.tree_sample_negatives.launches.value == n0 + 1
         pos_bn = pos[:, None].expand(B, NEG).reshape(-1)
         want = sampler.tree_sample_ref(u, pos_bn, cdf, num_items)
+        keep = sampler.ordered_for(u, cdf).all(0)
         torch.cuda.synchronize()
-        assert torch.equal(got.reshape(-1), want)
+        assert cdf_on == "card" or bool(keep.all())
+        assert torch.equal(got.reshape(-1)[keep], want[keep])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("num_items", (1682, 3706, 20_000))
+@pytest.mark.parametrize("N", (65536, 9999, 1001, 3))
+def test_tree_sampler_kernel_keeps_the_edge_cases(cuda, num_items, N):
+    """Bit for bit with the plain version, one round, sorted and unsorted:
+    runs of equal CDF entries (zero-weight items), uniforms on entries,
+    at and above cdf[-1], NaN and duplicates; N not a multiple of four
+    slots and below one block of 1,024; a catalog above the 12,288 items
+    a block stages."""
+    from ncf_tpu_torch.ops import sampler
+
+    gen = torch.Generator(device=cuda).manual_seed(num_items + N)
+    w = torch.rand(num_items, generator=gen, device=cuda).cpu()
+    w[torch.rand(num_items, generator=gen, device=cuda).cpu() < 0.3] = 0.0
+    w[-20:] = 0.0
+    cdf = torch.cumsum(w, 0)                    # a sequential, monotone sum
+    cdf = (cdf / cdf[-1]).to(cuda)
+    u = torch.rand(N, generator=gen, device=cuda)
+    on = torch.randint(0, num_items, (N // 10,), generator=gen, device=cuda)
+    u[:N // 10] = cdf[on]
+    u[N // 10:N // 5] = cdf[-1] + u[N // 10:N // 5]
+    u[-(N // 7 + 1):] = u[0]
+    u[N // 2] = float("nan")
+    no_pos = torch.full((N,), -1, dtype=torch.int32, device=cuda)
+    for order in ("sorted", "unsorted"):
+        x = (torch.sort(u).values if order == "sorted" else u)[None]
+        want = sampler.tree_sample_ref(x, no_pos, cdf, num_items)
+        got = sampler.tree_sample_negatives(x, no_pos, cdf, num_items)
+        torch.cuda.synchronize()
+        assert torch.equal(got.reshape(-1), want), order
 
 
 def _scatter_ids(gen, dev, shape, rows, skew):
@@ -605,7 +654,7 @@ def test_tensor_core_kernels_take_rows_up_to_128(cuda, D, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B", (1, 9, 64))
+@pytest.mark.parametrize("B", (1, 9, 64, 65))
 @pytest.mark.parametrize("seg", (128, 64, 32))
 def test_segmented_kernel_matches_plain_version(cuda, B, seg):
     gen = torch.Generator(device=cuda).manual_seed(B + seg)
@@ -618,11 +667,38 @@ def test_segmented_kernel_matches_plain_version(cuda, B, seg):
         rv, ri = topk.topk_scores_segmented_ref(q, table, 10, b,
                                                 seg_width=seg)
         _assert_close(kv, ki, rv, ri, q, table, b, cast_q=False)
+        for t in (table, table.to(torch.bfloat16)):
+            keys = topk._segmax_cuda(q, t, b, 2048, seg)
+            want = topk.segmax_keys_ref(q, t, b, 2048, seg)
+            bad = topk.segmax_key_violations(q, t, b, keys, want, seg)[1]
+            assert bad == 0
     # exact sums: the keys themselves are equal
     ti = torch.randint(-2, 3, (5_000, 16), generator=gen, device=cuda).float()
     qi = torch.randint(-2, 3, (B, 16), generator=gen, device=cuda).float()
     keys = topk._segmax_cuda(qi, ti, None, 2048, seg)
     assert torch.equal(keys, topk.segmax_keys_ref(qi, ti, None, 2048, seg))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", (100, 128, 129))
+@pytest.mark.parametrize("dtype", ("float32", "bfloat16"))
+def test_segmented_kernel_takes_rows_up_to_128(cuda, D, dtype):
+    """B9's keys on the tensor-core tile at the widest rows it stages;
+    wider rows raise on CUDA tensors (the plain version takes any)."""
+    gen = torch.Generator(device=cuda).manual_seed(D)
+    table = torch.randn((20_001, D), generator=gen, device=cuda).to(
+        getattr(torch, dtype))
+    bias = torch.randn((20_001,), generator=gen, device=cuda)
+    for B in (5, 64):
+        q = torch.randn((B, D), generator=gen, device=cuda)
+        want = topk.segmax_keys_ref(q, table, bias, 2048, 128)
+        if D > 128:
+            with pytest.raises(ValueError, match="dim <= 128"):
+                topk._segmax_cuda(q, table, bias, 2048, 128)
+            continue
+        keys = topk._segmax_cuda(q, table, bias, 2048, 128)
+        bad = topk.segmax_key_violations(q, table, bias, keys, want, 128)[1]
+        assert bad == 0
 
 
 @pytest.mark.cuda

@@ -1,4 +1,5 @@
-"""The arithmetic of B5's and B8's tensor-core tile, emulated on the CPU.
+"""The arithmetic of the tensor-core tile of B5, B8 and B9, emulated on
+the CPU.
 
 ``csrc/topk_common.cuh`` scores f32 tables by split-TF32: each operand x
 splits into ``hi = tf32_rna(x)`` and ``lo = tf32_rna(x - hi)``, and
@@ -16,6 +17,16 @@ bigvocab tables at D 64 and 61 and on adversarial magnitudes (entries of
 tests); the top-k of the emulated scores against the port's plain exact
 top-k; and one TF32 product failing the same tolerance, which is why the
 tile pays for three.
+
+B9 packs the tile's scores into one key per segment (the quantized score
+above the offset).  Its keys from the emulated ``split3`` and ``split2``
+scores are held against the JAX Pallas kernel's keys (interpret mode,
+``_segmax_kernel``) under the rule of ``topk.segmax_key_violations``
+(stated in ``csrc/topk_segmax.cu``): where a key differs, the plain winner i_P and the tile's winner i_K
+scored in f64 must satisfy ``s(i_P) - s(i_K) <= seg_width * ulp(|s(i_P)|
++ 2 eps) + 2 eps`` with ``eps = 1e-5 * max sum_d |q_d v_d| + 1e-6``.  On
+small integers the keys are equal bit for bit; one TF32 product breaks
+the rule.
 """
 
 import numpy as np
@@ -25,6 +36,11 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 torch.set_float32_matmul_precision("highest")
 
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+from jax.experimental import pallas as pl  # noqa: E402
+
+from ncf_tpu.ops import topk as jtopk  # noqa: E402
 from ncf_tpu_torch.ops import topk  # noqa: E402
 
 F32, F64 = np.float32, np.float64
@@ -196,3 +212,110 @@ def test_tile_top_k_matches_the_plain_exact_top_k(case, route):
     assert bool(((gv.double() - rv.double()).abs() <= tol).all())
     swap = gi.int() != ri
     assert bool(((sg - sr).abs() <= tol)[swap].all())
+
+
+# ---------------------------------------------------- B9's segment keys
+
+def _pack_keys(scores, block, seg):
+    """[B, Ipad / seg] keys of [B, I] f32 scores, the catalog padded to
+    ``block`` with NEG_INF scores, as the kernel packs them."""
+    B, I = scores.shape
+    ipad = -(-I // block) * block
+    s = np.full((B, ipad), np.float32(topk.NEG_INF), F32)
+    s[:, :I] = scores
+    i = s.view(np.int32)
+    mono = i ^ ((i >> 31) & np.int32(0x7FFFFFFF))
+    keys = (mono & np.int32(-seg)) | (np.arange(ipad, dtype=np.int32)
+                                      & np.int32(seg - 1))
+    return keys.reshape(B, -1, seg).max(axis=2)
+
+
+def _reference_keys(q, t, bias, block, seg):
+    """The JAX kernel's keys (``_segmax_kernel`` in interpret mode), in
+    the [B, segments] order the port returns."""
+    import functools
+
+    B, I = q.shape[0], t.shape[0]
+    ipad = -(-I // block) * block
+    tj = jnp.pad(jnp.asarray(t), ((0, ipad - I), (0, 0)))
+    bj = jnp.zeros((1, ipad), jnp.float32)
+    if bias is not None:
+        bj = bj.at[0, :I].set(jnp.asarray(bias))
+    kern = functools.partial(jtopk._segmax_kernel, I, block, seg,
+                             int(seg - 1).bit_length())
+    keys = pl.pallas_call(
+        kern, grid=(1, ipad // block),
+        in_specs=[pl.BlockSpec((B, q.shape[1]), lambda i, j: (i, 0)),
+                  pl.BlockSpec((block, q.shape[1]), lambda i, j: (j, 0)),
+                  pl.BlockSpec((1, block), lambda i, j: (0, j))],
+        out_specs=pl.BlockSpec((B, block // seg), lambda i, j: (j, 0)),
+        out_shape=jax.ShapeDtypeStruct((ipad // block * B, block // seg),
+                                       jnp.int32),
+        interpret=True)(jnp.asarray(q), tj, bj)
+    return (np.asarray(keys).reshape(ipad // block, B, block // seg)
+            .transpose(1, 0, 2).reshape(B, -1))
+
+
+def key_violations(q, t, bias, got, want, seg):
+    """(keys that differ, of them those outside B9's rule), by the port's
+    one statement of the rule, ``topk.segmax_key_violations``."""
+    def tt(x):
+        return None if x is None else torch.from_numpy(np.asarray(x))
+
+    return topk.segmax_key_violations(tt(q), tt(t), tt(bias), tt(got),
+                                      tt(want), seg)
+
+
+@pytest.mark.parametrize("seg", (32, 64, 128))
+@pytest.mark.parametrize("with_bias", (True, False))
+@pytest.mark.parametrize("route", ("split3", "split2"))
+def test_tile_segment_keys_are_within_the_tolerance(seg, with_bias, route):
+    block = 256                           # 640 items: 128 padded rows
+    differ = 0
+    for case in CASES:
+        q, t, bias = _case(case)
+        bias = bias if with_bias else None
+        qt, tt = _operands(route, q, t)
+        got = _pack_keys(tile_scores(q, t, bias, route), block, seg)
+        want = _reference_keys(qt, tt, bias, block, seg)
+        assert got.shape == want.shape == (16, 768 // seg)
+        np.testing.assert_array_equal(got[:, 640 // seg:],
+                                      want[:, 640 // seg:])
+        n, bad = key_violations(qt, tt, bias, got, want, seg)
+        assert bad == 0, (case, n, bad)
+        differ += n
+    # the rule is exercised: the tile's sums move some keys
+    assert differ > 0
+
+
+@pytest.mark.parametrize("seg", (32, 64, 128))
+@pytest.mark.parametrize("route", ("split3", "split2"))
+def test_small_integer_segment_keys_are_exact(seg, route):
+    rng = np.random.default_rng(seg)
+    q = rng.integers(-2, 3, (9, 16)).astype(F32)
+    t = rng.integers(-2, 3, (1000, 16)).astype(F32)
+    bias = rng.integers(0, 2, 1000).astype(F32)
+    for b in (bias, None):
+        got = _pack_keys(tile_scores(q, t, b, route), 512, seg)
+        np.testing.assert_array_equal(got, _reference_keys(q, t, b, 512, seg))
+        plain = topk.segmax_keys_ref(torch.from_numpy(q), torch.from_numpy(t),
+                                     None if b is None else torch.from_numpy(b),
+                                     512, seg)
+        np.testing.assert_array_equal(got, plain.numpy())
+
+
+def test_one_tf32_product_moves_keys_beyond_the_tolerance():
+    """Positive entries (no cancellation, so eps is as small as it gets
+    against the scores) and short rows: one TF32 product picks a winner
+    whose exact score falls short by more than the rule allows in a few
+    segments (3 of 2,048 here), the split-TF32 tile in none: near-ties
+    are rare, so the rule alone would let a single product through on
+    most data."""
+    rng = np.random.default_rng(0)
+    q = rng.uniform(1, 2, (16, 4)).astype(F32)
+    t = rng.uniform(1, 2, (4096, 4)).astype(F32)
+    want = _reference_keys(q, t, None, 512, 32)
+    one = _pack_keys(tile_scores(q, t, None, "tf32"), 512, 32)
+    three = _pack_keys(tile_scores(q, t, None, "split3"), 512, 32)
+    assert key_violations(q, t, None, one, want, 32)[1] > 0
+    assert key_violations(q, t, None, three, want, 32)[1] == 0
