@@ -15,7 +15,10 @@ Phases (each asserts; any failure exits non-zero and prints no result):
    inputs: the streaming top-k (B5) at the serving shapes, with tied
    scores and empty slots, and B5's and B8's answers for a user alone
    equal bit for bit to the same user's inside batches of 17 and 64; the
-   sampler (B1), on sorted and iid uniforms, and the temporal sum (B3) at
+   sampler (B1), on sorted and iid uniforms, and the temporal sum (B3, B
+   of 1, 3, 5, 4,097 and 16,384, K of 1 to 4, ids of -1, ``rows`` and far
+   out of range, dt 32 and 33, tables off 16-byte alignment, the grid
+   sized to the work and capped) at
    the training step's shapes and at edge shapes (CDFs summed on the CPU
    and on the card, the latter's slots counted where their uniforms see
    it out of order, zero-weight CDF runs, uniforms on entries, clipped,
@@ -86,15 +89,29 @@ Phases (each asserts; any failure exits non-zero and prints no result):
    ``user_history`` (``SequenceRescoreScorer``): single, excluding,
    temporal and batched requests and pair scores, held against the same
    server with ``fused_tower: off``; each request launches B4f;
-10. step time and examples/s (the median of five windows) and a profiler
+10. the evaluators at full width over the ML-1M-scale synthetic log
+   (``advanced_ncf_ml1m.yaml`` and the sequence path's
+   ``advanced_ncf_quality.yaml``, with the weights that phase 7's 30
+   steps from seeded weights left): the sampled
+   ``DeviceEvaluator`` (B4f launched) against itself under
+   ``fused_tower: off``, the ``FullCatalogEvaluator`` against
+   ``full_ranks_naive`` on 512 users, and both against the port on the
+   CPU on 128 users (the split evaluator's ranks first held to the
+   values it compared, formed again), each under the near-tie rule: a
+   rank may move only by the entries within twice the largest score
+   difference measured between the two sides of the positive's score;
+   each protocol's host and device time for one whole evaluation, with
+   its ten kernels that take the most device time;
+11. step time and examples/s (the median of five windows) and a profiler
    window over 20 steps (device time and operations per step, the host
    operations that take the most time) for config A under ``auto`` and
    ``off`` in both candidate modes and for config B; each training
    kernel's time (CUDA events, and device time from the profiler) beside
    its plain version, its library call (or, for B4, the plain layers of
-   ``off``) and its bound (B2 with its sort's device time and, for the
-   item table, its atomic version's time; B1 for the pooled and the iid
-   draw, and B1 and B3 beside an empty kernel's time).
+   ``off``) and its bound (B2 with its sort's device time, the library's
+   deterministic route for its function and, for the item table, its
+   atomic version's time; B1 for the pooled and the iid draw; B1 and B3
+   beside an empty kernel's time).
 
 Without a card, or run alone in a directory without the package, it
 prints why on standard output and standard error and exits 2.
@@ -134,12 +151,14 @@ CUDA_CORE_MS = {("topk_scores_streaming", 64, 4_000_000, "float32"): 2.470,
           ("topk_scores_streaming", 1, 4_000_000, "float32"): 0.730,
           ("topk_scores_streaming", 1024, 1_000_000, "bfloat16"): 9.451,
           ("topk_scores_pallas", 64, 4_000_000, "float32"): 9.002}
-# B6 (__dp4a on the CUDA cores), B2 (f32 atomics), B9, B4f and B4b before
+# B6 (__dp4a on the CUDA cores), B2 (f32 atomics), B3, B9, B4f and B4b before
 # their redesigns: (CUDA-event ms, profiler device ms), NVIDIA H100 80GB
 # HBM3, 700 W; printed beside this run's
 EARLIER_MS = {("topk_scores_streaming_int8", 64): (2.365, 1.820),
               ("topk_scores_streaming_int8", 1): (0.778, 0.553),
               ("onehot_scatter_add", "item"): (0.0671, 0.0163),
+              # B3 with a warp an example and 4-byte accesses
+              ("fused_lookup_sum", "step"): (0.0337, 0.00314),
               # B9 on the CUDA cores (f32 FMAs)
               ("topk_scores_segmented", 64): (1.753, 1.747),
               # B4f and B4b on the CUDA cores (f32 FMAs), PR 7's run
@@ -216,9 +235,11 @@ def cuda_ms(fn, iters, warmup=2):
     return start.elapsed_time(stop) / iters
 
 
-def device_profile(fn, iters):
+def device_profile(fn, iters, top=6, width=60):
     """Device kernels during ``iters`` calls of ``fn`` (torch.profiler):
-    {kernel name: ms per call}, the device time and the number of device
+    {kernel name: ms per call} of the ``top`` kernels with the most device
+    time (names cut to ``width``) and their launches per call, the device
+    time and the number of device
     operations per call, the share of the window's wall time with a kernel
     running (kernels run on one stream, so their times add up without
     overlap), and the host operations with the most self time per call.
@@ -238,10 +259,11 @@ def device_profile(fn, iters):
                 fn()
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
-        per, n_ops = {}, 0
+        per, count, n_ops = {}, {}, 0
         for e in prof.events():
             if e.device_type == DeviceType.CUDA:
                 per[e.name] = per.get(e.name, 0.0) + e.time_range.elapsed_us()
+                count[e.name] = count.get(e.name, 0) + 1
                 n_ops += 1
         host = sorted((a for a in prof.key_averages()
                        if a.device_type == DeviceType.CPU),
@@ -253,11 +275,14 @@ def device_profile(fn, iters):
         log("profile: not measured (the trace holds no device time)")
         return None
     busy = sum(per.values())
-    top = sorted(per.items(), key=lambda kv: -kv[1])[:6]
+    top = sorted(per.items(), key=lambda kv: -kv[1])[:top]
     return {"busy_share": busy / wall_us,
             "device_ms_per_call": busy / 1e3 / iters,
             "device_ops_per_call": n_ops / iters,
-            "kernels_ms_per_call": {n[:60]: us / 1e3 / iters for n, us in top},
+            "kernels_ms_per_call": {n[:width]: us / 1e3 / iters
+                                    for n, us in top},
+            "kernels_launches_per_call": {n[:width]: count[n] / iters
+                                          for n, _ in top},
             "host_self_ms_per_call": {
                 a.key[:60]: [a.self_cpu_time_total / 1e3 / iters,
                              a.count / iters] for a in host}}
@@ -843,6 +868,61 @@ def _scatter_cases(torch, scatter, gen, dev):
     return n
 
 
+def _b3_cases(torch, temporal_sum, sinusoidal_table, gen, dev):
+    """B3 bit for bit against its plain version: the step's tables, B of
+    1, 3, 5, 4,097 and 16,384, K of 1 to 4, ids of -1, ``rows`` and far
+    out of range, dt 32 (16-byte path) and 33 (one float a thread), tables
+    one float off 16-byte alignment (one float a thread).  Returns the
+    count of cases."""
+    n = 0
+    for dt, offset in ((32, 0), (33, 0), (32, 1)):
+        tables = []
+        for r in (24, 7, 12):
+            flat = torch.randn(r * dt + offset, generator=gen, device=dev)
+            tables.append(flat[offset:].view(r, dt))
+        pe = sinusoidal_table(dt, device=dev)
+        if offset:
+            pe = torch.cat([pe.new_zeros(1), pe.reshape(-1)])[1:].view(
+                pe.shape)
+        tables.append(pe)
+        for B in (1, 3, 5, 4097, 16384):
+            for K in (1, 2, 3, 4):
+                ts = tables[:K]
+                ids = torch.stack([torch.randint(
+                    0, t.shape[0], (B,), generator=gen, device=dev)
+                    for t in ts]).to(torch.int32)
+                ids[:, 0] = -1                   # each contributes 0
+                if B > 1:
+                    ids[:, 1] = torch.tensor([t.shape[0] for t in ts],
+                                             device=dev, dtype=torch.int32)
+                if B > 2:
+                    ids[:, 2] = 2 ** 31 - 1
+                    ids[K - 1, B // 2:] = -(2 ** 31)
+                want = temporal_sum.lookup_sum_ref(ids, ts)
+                got = temporal_sum._lookup_sum_cuda(ids, ts)
+                torch.cuda.synchronize()
+                check(torch.equal(got, want),
+                      f"B3 dt={dt} offset={offset} B={B} K={K}: kernel != "
+                      "plain version")
+                n += 1
+    # through the wrapper, as the step calls it, with and without the
+    # out-of-range ids
+    tables = [torch.randn((r, 32), generator=gen, device=dev)
+              for r in (24, 7, 12)] + [sinusoidal_table(32, device=dev)]
+    for B, bad in ((16384, False), (16384, True)):
+        ids = torch.stack([torch.randint(0, t.shape[0], (B,), generator=gen,
+                                         device=dev) for t in tables])
+        if bad:
+            ids[:, 0] = -1
+            ids[:, 1] = 400
+        got = temporal_sum.fused_lookup_sum(ids, tables)
+        torch.cuda.synchronize()
+        check(torch.equal(got, temporal_sum.lookup_sum_ref(ids, tables)),
+              f"B3 B={B}: kernel != plain version")
+        n += 1
+    return n
+
+
 def phase_training_kernels_vs_plain(torch):
     """B1, B2 and B3 against their plain versions at the step's shapes and
     at edge shapes, each equal bit for bit (B2 to its plain version run on
@@ -865,19 +945,9 @@ def phase_training_kernels_vs_plain(torch):
     log(f"kernel_vs_plain: onehot_scatter_add {n2} cases equal bit for bit "
         f"to the plain version on the CPU and from call to call "
         f"({time.perf_counter() - t0:.1f} s)")
-    tables = [torch.randn((r, 32), generator=gen, device=dev)
-              for r in (24, 7, 12)] + [sinusoidal_table(32, device=dev)]
-    for B, bad in ((16384, False), (16384, True), (5, True)):
-        ids = torch.stack([torch.randint(0, t.shape[0], (B,), generator=gen,
-                                         device=dev) for t in tables])
-        if bad:                                  # contributes 0
-            ids[:, 0] = -1
-            ids[:, 1] = 400
-        got = temporal_sum.fused_lookup_sum(ids, tables)
-        torch.cuda.synchronize()
-        check(torch.equal(got, temporal_sum.lookup_sum_ref(ids, tables)),
-              f"B3 B={B}: kernel != plain version")
-        n += 1
+    n3 = _b3_cases(torch, temporal_sum, sinusoidal_table, gen, dev)
+    n += n3
+    log(f"kernel_vs_plain: fused_lookup_sum {n3} cases equal bit for bit")
     log(f"kernel_vs_plain: training kernels {n} cases ok, max_abs_err "
         f"{json.dumps(errs)}")
     return errs
@@ -1147,7 +1217,8 @@ PER_STEP_SEQ = dict(PER_STEP, onehot_scatter_add=8)
 def _train_steps(torch, model, cfg, consts, batches, steps, per_step, what,
                  user_history=None):
     """``steps`` full-width steps from seeded params, each checked for its
-    launches; returns the per-step losses on the host."""
+    launches; returns the per-step losses on the host, the last step's
+    accuracy and the trained params."""
     from ncf_tpu_torch.models import advanced_ncf
     from ncf_tpu_torch.train import make_optimizer, make_train_step
 
@@ -1171,7 +1242,7 @@ def _train_steps(torch, model, cfg, consts, batches, steps, per_step, what,
     losses = torch.stack(losses).float().cpu()
     check(bool(torch.isfinite(losses).all()),
           f"training[{what}]: non-finite loss")
-    return losses, float(m["accuracy"])
+    return losses, float(m["accuracy"]), params
 
 
 def _loss_fell(losses, what):
@@ -1184,7 +1255,8 @@ def _loss_fell(losses, what):
 def phase_training(torch):
     """Config A as shipped: every sampler x candidate mode, 30 steps each,
     B4f and B4b once a step under ``fused_tower: auto``.  Returns
-    (launches per kernel over the phase, summary)."""
+    (launches per kernel over the phase, summary, the params trained with
+    stratified negatives in the independent mode)."""
     from ncf_tpu_torch.models import get_model, layers
     from ncf_tpu_torch.ops import embedding, sampler, tower
 
@@ -1206,8 +1278,12 @@ def phase_training(torch):
             cfg.train.negative_sampling = sampling
             cfg.model.candidate_mode = mode
             what = f"{sampling}/{mode}"
-            losses, acc = _train_steps(torch, model, cfg, consts, batches,
-                                       TRAIN_STEPS, PER_STEP, what)
+            losses, acc, params = _train_steps(
+                torch, model, cfg, consts, batches, TRAIN_STEPS, PER_STEP,
+                what)
+            if what == "stratified/independent":
+                trained = params
+            del params
             first, last = _loss_fell(losses, what)
             summary[what] = {"first5": first, "last5": last, "acc": acc}
             log(f"training[{what}]: {TRAIN_STEPS} steps, loss {first!r} -> "
@@ -1229,14 +1305,15 @@ def phase_training(torch):
     log(f"training: launches {json.dumps(launches)}; dropout zeroes "
         f"{zeroed!r} (attention) and {tower_zeroed!r} (tower) of a "
         f"[16384, 256] mask")
-    return launches, summary
+    return launches, summary, trained
 
 
 def phase_training_sequence(torch):
     """Config B: the quality config (sequence, independent) and its joint
     twin, 30 steps each with the train split's per-user history, then a
     few steps with causal per-example histories in the batch.  Returns
-    (launches per kernel over the phase, summary)."""
+    (launches per kernel over the phase, summary, the quality config's
+    trained params)."""
     from ncf_tpu_torch.data import BatchIterator
     from ncf_tpu_torch.models import get_model
     from ncf_tpu_torch.ops import embedding
@@ -1255,8 +1332,12 @@ def phase_training_sequence(torch):
         hist = train_inter.recent_history(cfg.model.history_len)
         batches = list(it.epoch(0))
         what = f"{name}/{cfg.model.candidate_mode}"
-        losses, acc = _train_steps(torch, model, cfg, consts, batches,
-                                   TRAIN_STEPS, PER_STEP_SEQ, what, hist)
+        losses, acc, params = _train_steps(torch, model, cfg, consts,
+                                           batches, TRAIN_STEPS, PER_STEP_SEQ,
+                                           what, hist)
+        if name == "quality":
+            trained = params
+        del params
         first, last = _loss_fell(losses, what)
         summary[what] = {"first5": first, "last5": last, "acc": acc}
         log(f"training[{what}]: {TRAIN_STEPS} steps with history "
@@ -1273,8 +1354,8 @@ def phase_training_sequence(torch):
     check(batches[0]["history"].shape == (cfg.train.batch_size,
                                           cfg.model.history_len),
           "causal batches carry no history column")
-    losses, acc = _train_steps(torch, model, cfg, consts, batches,
-                               CAUSAL_STEPS, PER_STEP_SEQ, "causal")
+    losses, acc, _ = _train_steps(torch, model, cfg, consts, batches,
+                                  CAUSAL_STEPS, PER_STEP_SEQ, "causal")
     summary["causal"] = {"losses": losses.tolist(), "acc": acc}
     log(f"training[causal]: {CAUSAL_STEPS} steps with [N, "
         f"{cfg.model.history_len}] per-example histories, losses "
@@ -1282,7 +1363,7 @@ def phase_training_sequence(torch):
     del ctx, it, batches
     launches = {k: c.value for k, c in counters.items()}
     log(f"training_sequence: launches {json.dumps(launches)}")
-    return launches, summary
+    return launches, summary, trained
 
 
 def phase_determinism(torch):
@@ -1577,6 +1658,387 @@ def phase_serving_sequence(torch, advanced_ncf, ModelServer):
     return out
 
 
+# logits: the largest score difference any eval comparison may measure
+# (the serving check's 5e-3 on probabilities over the sigmoid's largest
+# slope, 1/4); each comparison's near-tie window is twice the difference
+# it measures, which a bf16 flip in the tower puts at ~1e-3
+EVAL_SCORE_TOL = 2e-2
+EVAL_FULL_USERS = 512    # users held against the naive whole-catalog oracle
+EVAL_CPU_USERS = 128     # users held against the port on the CPU
+
+
+def _near_ties(ref, pos, gap, hist=None):
+    """Per user: the entries of the reference scores ``ref`` [U, N] (the
+    positive's own, column ``pos``, left out), and of the history pairs
+    ``hist`` = (user row, item, score) where given, that lie within
+    ``2 * gap`` of the positive's score: an entry further off stays on
+    its side when every score moves by at most ``gap``."""
+    import numpy as np
+
+    rows = np.arange(len(pos))
+    sp = ref[rows, pos]
+    near = np.abs(ref - sp[:, None]) <= 2 * gap
+    near[rows, pos] = False
+    out = near.sum(1)
+    if hist is not None:
+        hu, _, hs = hist
+        out += np.bincount(hu, np.abs(hs - sp[hu]) <= 2 * gap,
+                           len(pos)).astype(out.dtype)
+    return out
+
+
+def _hold_ranks(got, want, near, gap, what):
+    """Ranks ``got`` against ``want`` under the near-tie rule: a rank may
+    move only by the user's near ties, so users with none must have equal
+    ranks.  Returns a summary with the near ties a user has (mean, max)."""
+    import numpy as np
+
+    check(gap <= EVAL_SCORE_TOL / 2, f"eval {what}: scores differ by "
+          f"{gap!r}")
+    diff = np.abs(got.astype(np.int64) - want.astype(np.int64))
+    bad = int((diff > near).sum())
+    check(bad == 0, f"eval {what}: {bad} users' ranks differ by more than "
+          f"their near ties")
+    return {"users": len(got), "max_score_diff": gap,
+            "near_tie_users": int((near > 0).sum()),
+            "near_ties_mean": float(near.mean()),
+            "near_ties_max": int(near.max()),
+            "ranks_differ": int((diff > 0).sum()),
+            "equal_share": float((diff == 0).mean())}
+
+
+def _split_values(torch, ev, params):
+    """What ``FullCatalogEvaluator.ranks`` compares, formed as it forms
+    them, on the host: the block logits of every (eval user, catalog
+    item) pair [U, V], the positives' gathered logits [U], and the history
+    pairs (user row, item, gathered logit)."""
+    import numpy as np
+
+    from ncf_tpu_torch.utils.device import torch_dtype
+
+    cfg, C, V, U = ev.cfg, ev._C, ev.V, ev.U
+    dtype = torch_dtype(cfg.compute_dtype)
+    nblk = -(-V // C)
+    blocks, pos, mf, u1s, hu, hi, hs = [], [], [], [], [], [], []
+    with torch.no_grad():
+        iv, imlp = ev._item_tables(params, dtype)
+        a1 = [ev._item_part(params, imlp[b * C:(b + 1) * C], dtype)
+              for b in range(nblk)]
+        kv_t = (ev._seq_kv_table(params, dtype)
+                if cfg.use_sequence and ev._hist is not None else None)
+        for j in range(ev._users.shape[0]):
+            t = {k: v[j] for k, v in ev._temporal.items()}
+            h = ev._hist[j] if ev._hist is not None else None
+            user_mf, u1 = ev._user_parts(params, ev._users[j], t, h, kv_t,
+                                         dtype)
+            pos.append(ev._pair_scores_gathered(params, iv, imlp, user_mf,
+                                                u1, ev._pos[j], dtype).cpu())
+            blocks.append(torch.cat([ev._pair_scores(
+                params, user_mf, u1, iv[b * C:(b + 1) * C], a1[b], dtype)
+                for b in range(nblk)], 1)[:, :V].cpu())
+            mf.append(user_mf)
+            u1s.append(u1)
+        mf, u1s = torch.cat(mf)[:U], torch.cat(u1s)[:U]
+        for uu, ii, ok in zip(ev._ex_u, ev._ex_i, ev._ex_valid):
+            uu = uu.long()
+            s = ev._pair_scores_gathered(params, iv, imlp, mf[uu], u1s[uu],
+                                         ii, dtype)
+            hu.append(uu[ok].cpu())
+            hi.append(ii[ok].cpu())
+            hs.append(s[ok].cpu())
+    return (torch.cat(blocks)[:U].numpy(), torch.cat(pos)[:U].numpy(),
+            (torch.cat(hu).numpy(), torch.cat(hi).long().numpy(),
+             torch.cat(hs).numpy()))
+
+
+def _ranks_of_values(blocks, pos_s, hist, pos):
+    """The rank ``FullCatalogEvaluator.ranks`` forms from its values."""
+    import numpy as np
+
+    U = len(pos_s)
+    ok = np.ones(blocks.shape, bool)
+    ok[np.arange(U), pos] = False
+    g = ((blocks > pos_s[:, None]) & ok).sum(1)
+    ge = ((blocks >= pos_s[:, None]) & ok).sum(1)
+    hu, _, hs = hist
+    gh = np.bincount(hu, hs > pos_s[hu], U).astype(np.int64)
+    geh = np.bincount(hu, hs >= pos_s[hu], U).astype(np.int64)
+    return np.maximum(g - gh, ge - geh)
+
+
+def _values_gap(a, b, pos):
+    """The largest difference between two sets of ``_split_values`` of
+    the same users and pairs (the positive's own block column, which the
+    evaluator masks, left out)."""
+    import numpy as np
+
+    check(np.array_equal(a[2][0], b[2][0])
+          and np.array_equal(a[2][1], b[2][1]), "eval: history pairs differ")
+    d = np.abs(a[0] - b[0])
+    d[np.arange(len(pos)), pos] = 0
+    return float(max(d.max(), np.abs(a[1] - b[1]).max(),
+                     np.abs(a[2][2] - b[2][2]).max(initial=0.0)))
+
+
+def _block_scores(score, users, cands, temporal, B, dev="cuda"):
+    """``score``'s logits (a scorer on ``dev``) for every eval user, in the
+    evaluator's blocks of ``B`` (the last padded with its first row), on
+    the host."""
+    import numpy as np
+    import torch
+
+    out = []
+    for start in range(0, len(users), B):
+        sl = slice(start, start + B)
+        u, c = users[sl], cands[sl]
+        t = {k: v[sl] for k, v in temporal.items()}
+        n = len(u)
+        if n < B:
+            u = np.concatenate([u, u[:1].repeat(B - n)])
+            c = np.concatenate([c, c[:1].repeat(B - n, axis=0)])
+            t = {k: np.concatenate([v, v[:1].repeat(B - n)])
+                 for k, v in t.items()}
+        s = score(torch.as_tensor(u, device=dev),
+                  torch.as_tensor(c, device=dev),
+                  {k: torch.as_tensor(v, device=dev) for k, v in t.items()})
+        out.append(s.float().cpu().numpy()[:n])
+    return np.concatenate(out)
+
+
+def _timed(torch, fn):
+    """(result, host s) of one whole evaluation, and its device time from
+    the profiler (ms, the device's busy share of the window, the number
+    of device operations, and the ten kernels with the most device time,
+    each with its ms and launches)."""
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    host = time.perf_counter() - t0
+    prof = device_profile(fn, 1, top=10, width=150) or {}
+    return out, {"host_s": host,
+                 "device_ms": prof.get("device_ms_per_call"),
+                 "busy_share": prof.get("busy_share"),
+                 "device_ops": prof.get("device_ops_per_call"),
+                 "top_kernels": [
+                     [n, ms, prof["kernels_launches_per_call"][n]]
+                     for n, ms in prof["kernels_ms_per_call"].items()]
+                 if prof else None}
+
+
+def _eval_config(torch, advanced_ncf, path, card, params):
+    """The eval phase for one config at full width, with the params its
+    training phase left; returns (B4f launches of the sampled evaluation,
+    summary)."""
+    import copy
+
+    import numpy as np
+
+    from ncf_tpu_torch.convert import tree_map
+    from ncf_tpu_torch.evals import (DeviceEvaluator, EvalSet,
+                                     FullCatalogEvaluator, full_ranks_naive,
+                                     make_score_fn, metrics_from_ranks,
+                                     sample_eval_users)
+    from ncf_tpu_torch.ops import tower
+    from ncf_tpu_torch.utils.config import Config
+
+    cfg = Config.from_yaml(path)
+    inter, _ = _data(cfg)
+    m = cfg.model
+    m.num_users, m.num_items = inter.num_users, inter.num_items
+    m.num_departments = inter.num_departments
+    m.num_categories = inter.num_categories
+    check(m.fused_tower == "auto" and m.compute_dtype == "bfloat16",
+          f"eval {path}: not the shipped bf16 auto tower")
+    off = copy.deepcopy(m)
+    off.fused_tower = "off"
+    name = os.path.basename(path)
+
+    t0 = time.perf_counter()
+    loo_train, users, items = inter.leave_one_out()
+    users, items = sample_eval_users(users, items, cfg.data.eval_user_sample,
+                                     seed=cfg.train.seed + 777)
+    es = EvalSet.build(inter, users, items,
+                       num_negatives=cfg.data.num_eval_negatives,
+                       seed=cfg.train.seed)
+    hist = loo_train.recent_history(m.history_len) if m.use_sequence \
+        else None
+    dept, cat = np.asarray(inter.item_dept), np.asarray(inter.item_cat)
+    kw = dict(item_dept=dept, item_cat=cat, user_history=hist)
+    B = cfg.data.eval_batch_size
+    sampled = DeviceEvaluator(advanced_ncf, m, es, batch_size=B,
+                              device="cuda", **kw)
+    sampled_off = DeviceEvaluator(advanced_ncf, off, es, batch_size=B,
+                                  device="cuda", **kw)
+    full = FullCatalogEvaluator(
+        m, inter, users, items, user_block=cfg.data.full_eval_user_block,
+        item_block=cfg.data.full_eval_item_block, device="cuda", **kw)
+    setup_s = time.perf_counter() - t0
+    out = {"config": name, "eval_users": len(users),
+           "candidates": list(es.candidates.shape), "setup_s": setup_s,
+           "card": card}
+
+    # sampled: B4f under auto, none under off
+    launches = tower.fused_tower.fwd_launches
+    launches.reset()
+    r_auto, out["sampled_time"] = _timed(torch, lambda: sampled.ranks(params))
+    b4f = launches.value
+    check(b4f > 0, f"eval {name}: B4f was not launched by the sampled "
+          f"evaluation")
+    launches.reset()
+    r_off = sampled_off.ranks(params)
+    check(launches.value == 0, f"eval {name}: the off path launched B4f")
+    s_auto = _block_scores(make_score_fn(advanced_ncf, params, m,
+                                         device="cuda", **kw),
+                           es.users, es.candidates, es.temporal, B)
+    s_off = _block_scores(make_score_fn(advanced_ncf, params, off,
+                                        device="cuda", **kw),
+                          es.users, es.candidates, es.temporal, B)
+    check(np.isfinite(s_auto).all() and s_auto.shape == es.candidates.shape,
+          f"eval {name}: bad sampled scores")
+    # the scores the evaluator ranked are these (same blocks, same calls)
+    pr = lambda s: np.maximum((s[:, 1:] > s[:, :1]).sum(1),  # noqa: E731
+                              (s[:, 1:] >= s[:, :1]).sum(1))
+    check(np.array_equal(pr(s_auto), r_auto) and np.array_equal(
+        pr(s_off), r_off), f"eval {name}: ranks are not their scores'")
+    zero = np.zeros(len(users), np.int64)
+    gap = float(np.abs(s_auto - s_off).max())
+    out["sampled_vs_off"] = dict(
+        _hold_ranks(r_auto, r_off, _near_ties(s_off, zero, gap), gap,
+                    "sampled"), b4f_launches=b4f)
+    out["sampled_metrics"] = metrics_from_ranks(r_auto)
+
+    # full catalog: the split evaluator, then the naive oracle on a sample
+    r_full, out["full_time"] = _timed(torch, lambda: full.ranks(params))
+    check(r_full.shape == (len(users),) and (r_full >= 0).all()
+          and (r_full < m.num_items).all(), f"eval {name}: bad full ranks")
+    out["full_metrics"] = metrics_from_ranks(r_full)
+    # what the split evaluator compared, for every user: its ranks must
+    # be these values' ranks
+    vals = _split_values(torch, full, params)
+    check(np.array_equal(_ranks_of_values(*vals, items), r_full),
+          f"eval {name}: full ranks are not their values'")
+    rng = np.random.default_rng(11)
+    sel = np.sort(rng.choice(len(users), EVAL_FULL_USERS, replace=False))
+    su, si = users[sel], items[sel]
+    rows = np.arange(len(sel))
+    local = np.full(len(users), -1)
+    local[sel] = rows
+    keep = local[vals[2][0]] >= 0
+    hu, hi = local[vals[2][0][keep]], vals[2][1][keep]
+    catalog = np.tile(np.arange(m.num_items, dtype=np.int32), (len(su), 1))
+    temporal = {k: v[sel] for k, v in es.temporal.items()}
+    for tag, mc in (("auto", m), ("off", off)):
+        launches.reset()
+        naive = full_ranks_naive(advanced_ncf, params, mc, inter, su, si,
+                                 device="cuda", **kw)
+        check((launches.value > 0) == (tag == "auto"),
+              f"eval {name}: naive[{tag}] B4f launches {launches.value}")
+        s = _block_scores(make_score_fn(advanced_ncf, params, mc,
+                                        device="cuda", **kw),
+                          su, catalog, temporal, 256)
+        hist = (hu, hi, s[hu, hi])
+        check(np.array_equal(_ranks_of_values(s, s[rows, si], hist, si),
+                             naive), f"eval {name}: naive[{tag}] ranks are "
+              "not their scores'")
+        # every value the split evaluator compared, against the naive
+        # score of its pair
+        gap = _values_gap((vals[0][sel], vals[1][sel],
+                           (hu, hi, vals[2][2][keep])),
+                          (s, s[rows, si], hist), si)
+        out[f"full_vs_naive_{tag}"] = _hold_ranks(
+            r_full[sel], naive, _near_ties(s, si, gap, hist), gap,
+            f"full vs naive[{tag}]")
+
+    # the port on the CPU, on the first users, against the card
+    n = EVAL_CPU_USERS
+    host = tree_map(lambda t: t.detach().to("cpu", copy=True), params)
+    sub = EvalSet(users=es.users[:n], candidates=es.candidates[:n],
+                  temporal={k: v[:n] for k, v in es.temporal.items()})
+    r_cpu = DeviceEvaluator(advanced_ncf, m, sub, batch_size=B,
+                            device="cpu", **kw).ranks(host)
+    s_cpu = _block_scores(make_score_fn(advanced_ncf, host, m, device="cpu",
+                                        **kw),
+                          sub.users, sub.candidates, sub.temporal,
+                          min(B, n), "cpu")
+    check(np.array_equal(pr(s_cpu), r_cpu),
+          f"eval {name}: CPU ranks are not their scores'")
+    gap = float(np.abs(s_auto[:n] - s_cpu).max())
+    held = _hold_ranks(r_auto[:n], r_cpu, _near_ties(s_cpu, zero[:n], gap),
+                       gap, "sampled card vs cpu")
+    # the split evaluator on the first users, on the card and on the CPU,
+    # each held to the values it compared
+    kw_full = dict(user_block=cfg.data.full_eval_user_block,
+                   item_block=cfg.data.full_eval_item_block, **kw)
+    f_card = FullCatalogEvaluator(m, inter, users[:n], items[:n],
+                                  device="cuda", **kw_full)
+    f_ev = FullCatalogEvaluator(m, inter, users[:n], items[:n],
+                                device="cpu", **kw_full)
+    f_gpu, f_cpu = f_card.ranks(params), f_ev.ranks(host)
+    v_gpu, v_cpu = (_split_values(torch, f_card, params),
+                    _split_values(torch, f_ev, host))
+    check(np.array_equal(_ranks_of_values(*v_gpu, items[:n]), f_gpu)
+          and np.array_equal(_ranks_of_values(*v_cpu, items[:n]), f_cpu),
+          f"eval {name}: full ranks on {n} users are not their values'")
+    gap = _values_gap(v_gpu, v_cpu, items[:n])
+    # the CPU's block and history values are the reference; the
+    # positive's is its gathered one
+    ref = v_cpu[0].copy()
+    ref[np.arange(n), items[:n]] = v_cpu[1]
+    held_full = _hold_ranks(f_gpu, f_cpu, _near_ties(ref, items[:n], gap,
+                                                     v_cpu[2]),
+                            gap, "full card vs cpu")
+    # each user's hr/ndcg/mrr/map term lies in [0, 1], so a mean moves by
+    # at most the share of users whose ranks differ
+    for what, a, b, h in (("sampled", r_auto[:n], r_cpu, held),
+                          ("full", f_gpu, f_cpu, held_full)):
+        ma, mb = metrics_from_ranks(a), metrics_from_ranks(b)
+        tol = h["ranks_differ"] / n
+        for k in ma:
+            if k.split("@")[0] in ("hr", "ndcg", "mrr", "map"):
+                check(abs(ma[k] - mb[k]) <= tol + 1e-12,
+                      f"eval {name} {what}: card {k} {ma[k]!r} against the "
+                      f"CPU's {mb[k]!r}")
+        h["metric_tol"] = tol
+        h["card_hr@10"], h["cpu_hr@10"] = ma["hr@10"], mb["hr@10"]
+    out["sampled_card_vs_cpu"], out["full_card_vs_cpu"] = held, held_full
+    del sampled, sampled_off, full, f_card, vals
+    torch.cuda.empty_cache()
+    return b4f, out
+
+
+def phase_eval(torch, advanced_ncf, card, trained):
+    """The evaluators at full width: ``advanced_ncf_ml1m.yaml`` and the
+    sequence path's ``advanced_ncf_quality.yaml`` (history 50) over the
+    smoke's ML-1M-scale synthetic log, with the weights their training
+    phases left (``trained``: config path -> params; 30 steps from seeded
+    weights).  Returns (B4f launches of the sampled evaluations,
+    summaries)."""
+    from ncf_tpu_torch.ops import embedding
+
+    embedding.set_impl("xla")
+    launches, summaries = 0, []
+    for path in (ML1M, QUALITY):
+        n, out = _eval_config(torch, advanced_ncf, path, card, trained[path])
+        launches += n
+        summaries.append(out)
+        st, ft = out["sampled_time"], out["full_time"]
+        log(f"eval[{out['config']}]: {out['eval_users']} users, sampled "
+            f"{out['candidates']} host {st['host_s']!r} s, device "
+            f"{st['device_ms']!r} ms (busy {st['busy_share']!r}), B4f "
+            f"launches {n}; full catalog host {ft['host_s']!r} s, device "
+            f"{ft['device_ms']!r} ms (busy {ft['busy_share']!r}); hr@10 "
+            f"sampled {out['sampled_metrics']['hr@10']!r}, full "
+            f"{out['full_metrics']['hr@10']!r}; {card}")
+        for k in ("sampled_vs_off", "full_vs_naive_auto", "full_vs_naive_off",
+                  "sampled_card_vs_cpu", "full_card_vs_cpu"):
+            log(f"eval[{out['config']}]: {k} {json.dumps(out[k])}")
+        for k, t in (("sampled", st), ("full", ft)):
+            log(f"eval[{out['config']}]: {k} device ops {t['device_ops']!r}; "
+                f"top kernels [name, ms, launches] "
+                f"{json.dumps(t['top_kernels'])}")
+    return launches, summaries
+
+
 def _bound(nbytes, ops, peak_ops):
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
     t_ops = ops / peak_ops * 1e3
@@ -1591,6 +2053,23 @@ def _device_fields(call, library=None):
     out = {"device_ms": ms, "device_ops": ops}
     if library is not None:
         out["library_device_ms"] = device_split(library)[0]
+    return out
+
+
+def _deterministic_library(torch, det_lib, call):
+    """Time ``det_lib`` (a library call that computes B2's function) under
+    ``torch.use_deterministic_algorithms(True)``, and say whether two of
+    its calls, and B2's own result, agree with it bit for bit."""
+    torch.use_deterministic_algorithms(True)
+    try:
+        a, b = det_lib(), det_lib()
+        torch.cuda.synchronize()
+        out = {"det_library_ms": cuda_ms(det_lib, 50),
+               "det_library_device_ms": device_split(det_lib)[0],
+               "det_library_repeats": bool(torch.equal(a, b))}
+    finally:
+        torch.use_deterministic_algorithms(False)
+    out["det_library_equals_kernel"] = bool(torch.equal(a, call()))
     return out
 
 
@@ -1679,10 +2158,18 @@ def _time_training_kernels(torch, batch, negs, params, cfg, consts):
             return torch.zeros((nrows, d), device=dev).index_add_(
                 0, lids, rounded)
 
+        def det_lib(nrows=nrows, d=d, lids=lids, rounded=rounded):
+            # the library's deterministic route for the same function: a
+            # sort, then each row's values added in a fixed order
+            return torch.zeros((nrows, d), device=dev).index_put_(
+                (lids,), rounded, accumulate=True)
+
         runs = functools.partial(scatter._runs, ids)
+        det = _deterministic_library(torch, det_lib, call)
         rows.append({"kernel": "onehot_scatter_add", "shape": what,
                      "mode": mode, "ids": list(ids.shape),
                      "ms": cuda_ms(call, 50), **_device_fields(call, lib),
+                     **det,
                      "sort_device_ms": device_split(runs)[0],
                      "atomic_ms": EARLIER_MS.get(("onehot_scatter_add",
                                                   what)),
@@ -1707,6 +2194,7 @@ def _time_training_kernels(torch, batch, negs, params, cfg, consts):
     lib = functools.partial(F.embedding_bag, bag_ids, bag, mode="sum")
     rows.append({"kernel": "fused_lookup_sum", "shape": "step",
                  "ms": cuda_ms(call, 50), **_device_fields(call, lib),
+                 "earlier_ms": EARLIER_MS[("fused_lookup_sum", "step")],
                  "plain_ms": cuda_ms(lambda: temporal_sum.lookup_sum_ref(
                      ids, tables), 50),
                  "library_ms": cuda_ms(lib, 50),
@@ -1898,8 +2386,15 @@ def phase_training_timing(torch):
             f"{r.get('off_path_ms')!r} ms, bound {r['bound_ms']!r} ms "
             f"({r['bound_by']})" + (
                 f"; sort {r['sort_device_ms']!r} ms of device time, "
-                f"atomic version {r['atomic_ms']!r} ms"
+                f"atomic version {r['atomic_ms']!r} ms; deterministic "
+                f"library call (index_put_ accumulate) "
+                f"{r['det_library_ms']!r} ms (device "
+                f"{r['det_library_device_ms']!r} ms, repeats "
+                f"{r['det_library_repeats']}, equals the kernel "
+                f"{r['det_library_equals_kernel']})"
                 if "sort_device_ms" in r else "") + (
+                f"; before the redesign {r['earlier_ms']!r} ms (events, "
+                f"device)" if "earlier_ms" in r else "") + (
                 f"; CUDA-core version (PR 7) {r['pr7_ms']!r} ms (device "
                 f"{r['pr7_device_ms']!r} ms); Philox draws "
                 f"{r['philox_ms']!r} ms at the int32 rate"
@@ -2650,12 +3145,12 @@ def main() -> int:
     log(f"phase demo {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    launches, summary = phase_training(torch)
+    launches, summary, trained_a = phase_training(torch)
     log(f"phase training {time.perf_counter() - t0:.1f} s")
     log("training_summary_json: " + json.dumps(summary))
 
     t0 = time.perf_counter()
-    seq_launches, seq_summary = phase_training_sequence(torch)
+    seq_launches, seq_summary, trained_b = phase_training_sequence(torch)
     log(f"phase training_sequence {time.perf_counter() - t0:.1f} s")
     log("training_sequence_json: " + json.dumps(seq_summary))
     for k, v in seq_launches.items():
@@ -2680,6 +3175,14 @@ def main() -> int:
     launches["fused_tower_fwd"] += seq_serving["b4f_launches"]
     log(f"phase serving_sequence {time.perf_counter() - t0:.1f} s")
     log("serving_sequence_json: " + json.dumps(seq_serving))
+
+    t0 = time.perf_counter()
+    eval_launches, eval_summary = phase_eval(
+        torch, advanced_ncf, card, {ML1M: trained_a, QUALITY: trained_b})
+    del trained_a, trained_b
+    launches["fused_tower_fwd"] += eval_launches
+    log(f"phase eval {time.perf_counter() - t0:.1f} s")
+    log("eval_json: " + json.dumps(eval_summary))
 
     t0 = time.perf_counter()
     train_rows, _ = phase_training_timing(torch)

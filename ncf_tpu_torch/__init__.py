@@ -8,16 +8,20 @@ imports ``torch`` and numpy, never JAX and nothing of ``ncf_tpu``.
 Ported so far: the serving path, ``ModelServer`` -> ``AdvancedNCFScorer``
 -> ``ops.topk.topk_scores_streaming``, and the training step,
 ``train.step.make_train_step`` over AdvancedNCF in training mode with its
-sampler, embedding-gradient scatter and temporal lookup-sum.  Each kernel
+sampler, embedding-gradient scatter and temporal lookup-sum, and the
+evaluators (``evals.DeviceEvaluator``, ``evals.FullCatalogEvaluator``).
+Each kernel
 is hand-written CUDA C++ for ``sm_90a`` (``ops/csrc/*.cu``, built with
 ``nvcc`` at first use and bound with ``ctypes``).
 
 Package layout
 --------------
 - ``ncf_tpu_torch.data``    — synthetic logs, interactions, the batch
-                              iterator (NumPy copies) and the device
-                              negative samplers.
-- ``ncf_tpu_torch.evals``   — batch accuracy and rank metrics.
+                              iterator (NumPy copies), the device
+                              negative samplers and the host eval
+                              sampler.
+- ``ncf_tpu_torch.evals``   — metrics, and the sampled and full-catalog
+                              leave-one-out evaluators.
 - ``ncf_tpu_torch.models``  — functional AdvancedNCF (plain dict params,
                               the JAX pytree's keys and [in, out] layout).
 - ``ncf_tpu_torch.native``  — the port's copy of the C++ data loader.

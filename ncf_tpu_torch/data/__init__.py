@@ -2,6 +2,8 @@ from ncf_tpu_torch.data.interactions import SECONDS_PER_DAY, Interactions
 from ncf_tpu_torch.data.pipeline import BatchIterator
 from ncf_tpu_torch.data.sampler import (
     make_sampling_cdf,
+    padded_histories,
+    sample_eval_negatives,
     sample_negatives,
     sample_negatives_stratified,
 )
@@ -12,6 +14,8 @@ __all__ = [
     "SECONDS_PER_DAY",
     "BatchIterator",
     "make_sampling_cdf",
+    "padded_histories",
+    "sample_eval_negatives",
     "sample_negatives",
     "sample_negatives_stratified",
     "generate_interactions",

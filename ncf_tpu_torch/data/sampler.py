@@ -1,8 +1,12 @@
-"""Negative sampling on the device.
+"""Negative sampling: on the device for training, on the host for eval.
 
-Port of the device half of ``ncf_tpu/data/sampler.py``:
-``make_sampling_cdf``, ``_inverse_cdf``, ``sample_negatives`` (iid, with
-its plain ``history`` variant) and ``sample_negatives_stratified``.
+Port of ``ncf_tpu/data/sampler.py``: ``make_sampling_cdf``,
+``_inverse_cdf``, ``sample_negatives`` (iid, with its plain ``history``
+variant) and ``sample_negatives_stratified`` on the device; and the host
+NumPy eval sampler ``sample_eval_negatives`` with ``_membership`` and
+``padded_histories``, which draw the same candidates as the reference's
+from the same ``np.random.Generator`` (natively where the port's copy of
+the C++ loader builds, else by the same vectorised rejection loop).
 
 Randomness comes from an explicit ``torch.Generator`` on the sampler's
 device.  Its numbers are not ``jax.random``'s, so every sampler also takes
@@ -143,3 +147,80 @@ def sample_negatives_stratified(
         nxt = pooled[(cell + rot + 32 * k) % N]
         negs = torch.where(negs == pos, nxt, negs)
     return negs
+
+
+# ------------------------------------------------------- host eval sampling
+
+def sample_eval_negatives(
+    rng: np.random.Generator,
+    eval_users: np.ndarray,        # int32 [U']
+    history_offsets: np.ndarray,   # int64 [num_users + 1] CSR offsets
+    history_items: np.ndarray,     # int32 [N] sorted within each user
+    num_items: int,
+    num_negatives: int = 100,
+) -> np.ndarray:
+    """``[U', num_negatives]`` int32: for each eval user, items drawn
+    uniformly from outside the user's full history.  The native sampler
+    where it is built (exact, seeded from ``rng``); otherwise NumPy
+    rejection: draw, test membership by a binary search of the sorted
+    history, draw again only the colliding entries (at most 100 rounds)."""
+    from ncf_tpu_torch import native
+
+    if native.available():
+        seed = int(rng.integers(0, 2**62))
+        return native.sample_negatives_exact(
+            eval_users, eval_users * 0 - 1,  # no extra positive to exclude
+            np.ones(num_items, np.float64),
+            history_offsets, history_items, num_negatives, seed=seed)
+
+    U = len(eval_users)
+    rows = np.repeat(np.arange(U), num_negatives)
+    draw = rng.integers(0, num_items, size=U * num_negatives).astype(np.int32)
+    bad = _membership(eval_users[rows], draw, history_offsets, history_items)
+    attempts = 0
+    while bad.any() and attempts < 100:
+        n_bad = int(bad.sum())
+        draw[bad] = rng.integers(0, num_items, size=n_bad).astype(np.int32)
+        bad_idx = np.nonzero(bad)[0]
+        still = _membership(eval_users[rows[bad_idx]], draw[bad_idx],
+                            history_offsets, history_items)
+        bad = np.zeros_like(bad)
+        bad[bad_idx[still]] = True
+        attempts += 1
+    return draw.reshape(U, num_negatives)
+
+
+def _membership(users: np.ndarray, items: np.ndarray, offsets: np.ndarray,
+                sorted_items: np.ndarray) -> np.ndarray:
+    """Whether each ``items[j]`` lies in user ``users[j]``'s sorted history
+    segment: a binary search, vectorised over the queries."""
+    lo = offsets[users]
+    hi = offsets[users + 1]
+    res = np.zeros(len(users), bool)
+    left = lo.copy()
+    right = hi.copy()
+    while True:
+        active = left < right
+        if not active.any():
+            break
+        mid = (left + right) // 2
+        vals = np.where(
+            active, sorted_items[np.minimum(mid, len(sorted_items) - 1)], 0)
+        go_right = active & (vals < items)
+        found = active & (vals == items)
+        res |= found
+        left = np.where(go_right, mid + 1, left)
+        right = np.where(active & ~go_right & ~found, mid, right)
+        left = np.where(found, right, left)      # end the found queries
+    return res
+
+
+def padded_histories(offsets: np.ndarray, items: np.ndarray,
+                     users: np.ndarray, max_len: int) -> np.ndarray:
+    """Per-user histories as a dense ``[len(users), max_len]`` int32 array
+    padded with -1 (each cut to its first ``max_len`` items)."""
+    out = np.full((len(users), max_len), -1, np.int32)
+    for r, u in enumerate(users):
+        seg = items[offsets[u]:offsets[u + 1]][:max_len]
+        out[r, :len(seg)] = seg
+    return out

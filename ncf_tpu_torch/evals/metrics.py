@@ -1,7 +1,7 @@
-"""Batch metrics: accuracy stats and leave-one-out rank metrics.
+"""Batch metrics: leave-one-out rank metrics, the general multi-positive
+metrics (HR, NDCG, MRR, MAP at k, AUC) and accuracy stats.
 
-Port of ``ncf_tpu/evals/metrics.py`` (``accuracy_stats``,
-``positive_ranks``, ``rank_metrics``): the same definitions over
+Port of ``ncf_tpu/evals/metrics.py``: the same definitions over
 ``[batch, candidates]`` logit matrices, as tensor code on the scores'
 device.  Accuracy thresholds logits at 0 (probability 0.5).
 """
@@ -56,3 +56,96 @@ def accuracy_stats(logits: torch.Tensor,
         "neg_accuracy": (correct * neg_mask).sum()
         / torch.clamp(neg_mask.sum(), min=1.0),
     }
+
+
+# --------------------------------------------------- general multi-positive
+
+def _topk_relevance(scores: torch.Tensor, targets: torch.Tensor,
+                    k: int) -> torch.Tensor:
+    """Relevance (0/1) of the top-k scored items per row: [B, k]."""
+    idx = torch.topk(scores, k, dim=1).indices
+    return torch.take_along_dim(targets, idx, dim=1)
+
+
+def hit_rate_at_k(scores: torch.Tensor, targets: torch.Tensor,
+                  k: int) -> torch.Tensor:
+    """Any positive in the top-k."""
+    rel = _topk_relevance(scores, targets, k)
+    return (rel.sum(dim=1) > 0).to(torch.float32).mean()
+
+
+def ndcg_at_k(scores: torch.Tensor, targets: torch.Tensor,
+              k: int) -> torch.Tensor:
+    """Binary-relevance DCG over the ideal DCG."""
+    rel = _topk_relevance(scores, targets, k).to(torch.float32)
+    discounts = 1.0 / torch.log2(
+        torch.arange(k, dtype=torch.float32, device=scores.device) + 2.0)
+    dcg = (rel * discounts).sum(dim=1)
+    ideal_rel = torch.sort(targets.to(torch.float32), dim=1,
+                           descending=True).values[:, :k]
+    idcg = (ideal_rel * discounts).sum(dim=1)
+    return torch.where(idcg > 0, dcg / torch.clamp(idcg, min=1e-12),
+                       torch.zeros_like(dcg)).mean()
+
+
+def mrr_at_k(scores: torch.Tensor, targets: torch.Tensor,
+             k: int) -> torch.Tensor:
+    """1 / rank of the first positive within the top-k."""
+    rel = _topk_relevance(scores, targets, k)
+    pos_ranks = torch.arange(1, k + 1, dtype=torch.float32,
+                             device=scores.device)
+    first = torch.argmax((rel > 0).to(torch.int32), dim=1)
+    any_hit = rel.sum(dim=1) > 0
+    return torch.where(any_hit, 1.0 / pos_ranks[first],
+                       torch.zeros_like(pos_ranks[first])).mean()
+
+
+def map_at_k(scores: torch.Tensor, targets: torch.Tensor,
+             k: int) -> torch.Tensor:
+    """Mean average precision within the top-k."""
+    rel = _topk_relevance(scores, targets, k).to(torch.float32)
+    cum = torch.cumsum(rel, dim=1)
+    prec = cum / torch.arange(1, k + 1, dtype=torch.float32,
+                              device=scores.device)
+    num_rel = rel.sum(dim=1)
+    ap = torch.where(num_rel > 0,
+                     (prec * rel).sum(dim=1) / torch.clamp(num_rel, min=1.0),
+                     torch.zeros_like(num_rel))
+    return ap.mean()
+
+
+def auc(scores: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Pairwise AUC over the flattened batch, from the rank-sum identity
+    (tied scores take the ranks a stable sort gives them)."""
+    s = scores.reshape(-1)
+    t = targets.reshape(-1).to(torch.float32)
+    order = torch.sort(s, stable=True).indices
+    ranks = torch.empty_like(s).scatter_(
+        0, order, torch.arange(1, s.shape[0] + 1, dtype=s.dtype,
+                               device=s.device))
+    n_pos = t.sum()
+    n_neg = t.shape[0] - n_pos
+    rank_sum = (ranks * t).sum()
+    return torch.where(
+        (n_pos > 0) & (n_neg > 0),
+        (rank_sum - n_pos * (n_pos + 1) / 2)
+        / torch.clamp(n_pos * n_neg, min=1.0),
+        torch.full_like(n_pos, 0.5))
+
+
+def calculate_metrics(scores: torch.Tensor, targets: torch.Tensor,
+                      ks: Sequence[int] = (1, 5, 10)
+                      ) -> Dict[str, torch.Tensor]:
+    """General metrics dict over ``[B, C]`` scores and 0/1 targets:
+    hit_rate/ndcg/mrr/map at each k (capped at C), AUC and accuracy."""
+    out: Dict[str, torch.Tensor] = {}
+    C = scores.shape[1]
+    for k in ks:
+        kk = min(k, C)
+        out[f"hit_rate@{k}"] = hit_rate_at_k(scores, targets, kk)
+        out[f"ndcg@{k}"] = ndcg_at_k(scores, targets, kk)
+        out[f"mrr@{k}"] = mrr_at_k(scores, targets, kk)
+        out[f"map@{k}"] = map_at_k(scores, targets, kk)
+    out["auc"] = auc(scores, targets)
+    out.update(accuracy_stats(scores, targets))
+    return out

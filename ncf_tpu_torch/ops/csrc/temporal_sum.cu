@@ -14,22 +14,31 @@
 //
 // What bounds it on this card: the bytes.  At the training step's shape
 // (B = 16,384, dt = 32) it reads 262 KB of ids and 52 KB of tables and
-// writes 2.1 MB, about 0.7 us at 3.35 TB/s; launch latency dominates.
+// writes 2.1 MB, about 0.7 us at 3.35 TB/s; the output is nearly all of it,
+// and a launch costs about as much again.
 //
-// Design: a block is 8 rows x 32 lanes; each row of threads loads its
-// example's K ids once (one broadcast read per warp) and walks d across
-// the lanes, so a warp reads each looked-up table row with consecutive
-// lanes and writes one coalesced output row; no thread divides.  The
-// tables (52 KB in all) are read through the read-only cache, where they
-// stay resident; the TPU's one-hot matmuls existed only to feed its matrix
-// unit.
+// Design: each thread owns one 16-byte quarter (a float4) of one example's
+// row, so dt/4 threads serve an example (8 at dt = 32: four examples fill a
+// warp, whose loads of a table row and whose store each cover 512
+// contiguous bytes).  A block of 256 threads serves E = 256 / (dt/4)
+// examples; it first stages their K x E ids in shared memory, one
+// coalesced load of E ids per table (2,048 warp loads at the step's shape
+// instead of one broadcast load per example and table), so every id load
+// is in flight before the first table load.  Tables are read as float4
+// through the read-only cache, where their 52 KB stay resident.  A width
+// that is not a multiple of 4, or a table or output not 16-byte aligned,
+// takes the same kernel with one float a thread.  A row wider than 1,024
+// floats has its quarters walked by the block's 256 threads.  The grid is
+// one block per E examples (512 blocks at the step's shape): a grid of
+// two blocks an SM striding over the groups measured slower on the H100
+// (PERF.md, B3's row).
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kLanes = 32;  // threads along dt
-constexpr int kRows = 8;    // examples per block
+constexpr int kThreads = 256;
 constexpr int kMaxTables = 4;
 
 struct Tables {
@@ -37,31 +46,63 @@ struct Tables {
   int rows[kMaxTables];
 };
 
-__global__ void __launch_bounds__(kLanes * kRows)
+__device__ __forceinline__ float vadd(float a, float b) { return a + b; }
+__device__ __forceinline__ float4 vadd(float4 a, float4 b) {
+  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
+__device__ __forceinline__ void vzero(float& v) { v = 0.f; }
+__device__ __forceinline__ void vzero(float4& v) {
+  v = make_float4(0.f, 0.f, 0.f, 0.f);
+}
+
+// T is float4 (V = 4 floats a thread) or float (V = 1); q = dt / V pieces
+// a row, qt = min(q, kThreads) threads an example, E = kThreads / qt
+// examples a block; thread t of block g serves example g * E + t / qt,
+// pieces t % qt, t % qt + qt, ...
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
 temporal_sum_kernel(const int* __restrict__ ids, Tables tabs, int K, int B,
-                    int dt, float* __restrict__ out) {
-  const int b = blockIdx.x * kRows + threadIdx.y;
-  if (b >= B) return;
-  // unrolled, so that constant indices keep the struct out of local memory
-  const float* row[kMaxTables];
+                    int q, int qt, int E, float* __restrict__ out) {
+  __shared__ int sid[kMaxTables][kThreads];
+  const int tid = threadIdx.x;
+  const int el = tid / qt;
+  const int c0 = tid - el * qt;
+  const int e0 = blockIdx.x * E;
+  const int n = min(E, B - e0);
+  for (int j = tid; j < K * E; j += kThreads) {
+    const int k = j / E;
+    const int i = j - k * E;
+    if (i < n) sid[k][i] = __ldg(ids + (long long)k * B + e0 + i);
+  }
+  __syncthreads();
+  if (el >= n) return;
+  // unrolled, so that constant indices keep the struct in registers
+  const T* row[kMaxTables];
 #pragma unroll
   for (int k = 0; k < kMaxTables; ++k) {
-    const int id = k < K ? __ldg(ids + (long long)k * B + b) : -1;
-    row[k] = (id >= 0 && id < tabs.rows[k]) ? tabs.t[k] + (long long)id * dt
-                                            : nullptr;
+    const int id = k < K ? sid[k][el] : -1;
+    row[k] = (id >= 0 && id < tabs.rows[k])
+                 ? reinterpret_cast<const T*>(tabs.t[k]) + (long long)id * q
+                 : nullptr;
   }
-  float* dst = out + (long long)b * dt;
-  for (int d = threadIdx.x; d < dt; d += kLanes) {
-    float acc = 0.f;
+  T* dst = reinterpret_cast<T*>(out) + (long long)(e0 + el) * q;
+  for (int c = c0; c < q; c += qt) {
+    T acc;
 #pragma unroll
     for (int k = 0; k < kMaxTables; ++k) {
       if (k >= K) break;
-      const float v = row[k] != nullptr ? __ldg(row[k] + d) : 0.f;
-      acc = k == 0 ? v : acc + v;
+      T v;
+      if (row[k] != nullptr)
+        v = __ldg(row[k] + c);
+      else
+        vzero(v);
+      acc = k == 0 ? v : vadd(acc, v);
     }
-    dst[d] = acc;
+    dst[c] = acc;
   }
 }
+
+bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
 }  // namespace
 
@@ -78,12 +119,23 @@ int ncf_temporal_sum(const int* ids, int K, int B, int dt, const float* t0,
     return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
   Tables tabs = {{t0, t1, t2, t3}, {rows0, rows1, rows2, rows3}};
-  for (int k = 0; k < K; ++k)
+  bool vec = dt % 4 == 0 && aligned16(out);
+  for (int k = 0; k < K; ++k) {
     if (tabs.t[k] == nullptr || tabs.rows[k] <= 0)
       return (int)cudaErrorInvalidValue;
-  const unsigned blocks = (unsigned)((B + kRows - 1) / kRows);
-  temporal_sum_kernel<<<blocks, dim3(kLanes, kRows), 0,
-                        (cudaStream_t)stream>>>(ids, tabs, K, B, dt, out);
+    vec = vec && aligned16(tabs.t[k]);
+  }
+  const int q = vec ? dt / 4 : dt;
+  const int qt = q < kThreads ? q : kThreads;
+  const int E = kThreads / qt;
+  const int blocks = (B + E - 1) / E;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (vec)
+    temporal_sum_kernel<float4><<<blocks, kThreads, 0, s>>>(
+        ids, tabs, K, B, q, qt, E, out);
+  else
+    temporal_sum_kernel<float><<<blocks, kThreads, 0, s>>>(
+        ids, tabs, K, B, q, qt, E, out);
   return (int)cudaGetLastError();
 }
 

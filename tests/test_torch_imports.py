@@ -32,7 +32,9 @@ def test_every_module_is_listed():
                  "ncf_tpu_torch.data.interactions",
                  "ncf_tpu_torch.data.synthetic",
                  "ncf_tpu_torch.data.pipeline", "ncf_tpu_torch.data.sampler",
-                 "ncf_tpu_torch.evals.metrics", "ncf_tpu_torch.train.optim",
+                 "ncf_tpu_torch.evals.metrics",
+                 "ncf_tpu_torch.evals.evaluate",
+                 "ncf_tpu_torch.evals.full_eval", "ncf_tpu_torch.train.optim",
                  "ncf_tpu_torch.train.step", "ncf_tpu_torch.ops.tower",
                  "ncf_tpu_torch.ops.gather", "ncf_tpu_torch.models.ncf"):
         assert name in mods
@@ -87,6 +89,44 @@ def test_entry_points_default_to_the_card(monkeypatch):
         make_train_step(get_model("advanced_ncf"), cfg,
                         make_optimizer(cfg.train))
     assert resolve_device("cpu").type == "cpu"
+
+
+def test_eval_entry_points_default_to_the_card(monkeypatch):
+    import numpy as np
+
+    from ncf_tpu_torch.data import generate_interactions
+    from ncf_tpu_torch.evals import (DeviceEvaluator, EvalSet,
+                                     FullCatalogEvaluator, evaluate,
+                                     full_ranks_naive, make_score_fn)
+    from ncf_tpu_torch.models import advanced_ncf
+    from ncf_tpu_torch.utils.config import ModelConfig
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    inter = generate_interactions(num_users=20, num_items=15, num_days=10,
+                                  avg_txns_per_user=4, seed=0)
+    _, users, items = inter.leave_one_out()
+    es = EvalSet.build(inter, users, items, num_negatives=5)
+    cfg = ModelConfig(num_users=20, num_items=15, mf_dim=8, mlp_dim=8,
+                      temporal_dim=4, mlp_hidden_dims=[8], num_heads=2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DeviceEvaluator(advanced_ncf, cfg, es)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        FullCatalogEvaluator(cfg, inter, users, items)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_score_fn(advanced_ncf, {}, cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        evaluate(lambda u, c, t: c.float(), es)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        full_ranks_naive(advanced_ncf, {}, cfg, inter, users, items)
+    # asked for the CPU, they run there
+    ranks = DeviceEvaluator(advanced_ncf, cfg, es, device="cpu").ranks(
+        advanced_ncf.init(torch.Generator().manual_seed(0), cfg,
+                          device="cpu"))
+    assert ranks.shape == (len(users),) and (ranks >= 0).all()
+    assert evaluate(lambda u, c, t: torch.zeros(c.shape), es,
+                    device="cpu")["hr@1"] == 0.0
+    assert np.isfinite(list(evaluate(lambda u, c, t: c.float(), es,
+                                     device="cpu").values())).all()
 
 
 def test_the_kernel_loader_builds_nothing_on_import():

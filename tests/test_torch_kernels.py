@@ -303,6 +303,39 @@ def test_temporal_sum_kernel_equals_plain_version(cuda, B):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B", (1, 3, 5, 4097, 16384))
+@pytest.mark.parametrize("K", (1, 2, 3, 4))
+@pytest.mark.parametrize("dt,offset", ((32, 0), (33, 0), (32, 1), (1028, 0)))
+def test_temporal_sum_kernel_edge_cases(cuda, B, K, dt, offset):
+    """Bit for bit with the plain version for every table count, ids of
+    -1, ``rows`` and far out of range, the 16-byte path (dt 32 and 1028,
+    whose rows take more than one block's threads) and the one-float path
+    (dt 33, or tables one float off 16-byte alignment)."""
+    from ncf_tpu_torch.ops import temporal_sum
+
+    gen = torch.Generator(device=cuda).manual_seed(B * 7 + K)
+    rows = (24, 7, 12, 365)[:K]
+    tables = []
+    for r in rows:
+        flat = torch.randn(r * dt + offset, generator=gen, device=cuda)
+        tables.append(flat[offset:].view(r, dt))
+    ids = torch.stack([torch.randint(0, r, (B,), generator=gen, device=cuda)
+                       for r in rows]).to(torch.int32)
+    ids[:, 0] = -1
+    if B > 1:
+        ids[:, 1] = torch.tensor(rows, device=cuda, dtype=torch.int32)
+    if B > 2:
+        ids[:, 2] = 2 ** 31 - 1
+        ids[0, B // 2:] = -(2 ** 31)
+    want = temporal_sum.lookup_sum_ref(ids, tables)
+    n0 = temporal_sum.fused_lookup_sum.launches.value
+    got = temporal_sum._lookup_sum_cuda(ids, tables)
+    torch.cuda.synchronize()
+    assert temporal_sum.fused_lookup_sum.launches.value == n0 + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
 def test_cuda_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     from ncf_tpu_torch.ops import sampler, scatter, temporal_sum
 

@@ -112,3 +112,63 @@ def test_temporal_apply_takes_the_sum_of_lookups_on_the_cpu():
                           *[torch.from_numpy(c) for c in cols])
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-6)
     assert tts.fused_lookup_sum.launches.value == 0
+
+
+# ---- a NumPy replay of the kernel's launch (``csrc/temporal_sum.cu``)
+
+THREADS = 256                      # kThreads
+
+
+def _replay_launch(K, B, dt, vec):
+    """Replay ``ncf_temporal_sum``'s geometry and every thread of
+    ``temporal_sum_kernel``: how often each output float is written, and
+    whether each thread read only ids its block had staged.  ``vec``: the
+    16-byte path (``dt % 4 == 0`` and aligned pointers), else one float a
+    thread."""
+    V = 4 if vec else 1
+    q = dt // V
+    qt = min(q, THREADS)
+    E = THREADS // qt
+    blocks = -(-B // E)                           # one block a group
+    writes = np.zeros((B, dt), np.int64)
+    tid = np.arange(THREADS)
+    el, c0 = tid // qt, tid % qt
+    for b in range(blocks):
+        e0 = b * E
+        n = min(E, B - e0)
+        staged = np.zeros((4, THREADS), bool)
+        for j0 in range(0, K * E, THREADS):
+            j = j0 + tid
+            j = j[j < K * E]
+            k, i = j // E, j % E
+            ok = i < n
+            assert (k[ok] * B + e0 + i[ok] < K * B).all()
+            staged[k[ok], i[ok]] = True
+        act = el < n
+        assert staged[:K][:, el[act]].all(), "a thread read an id " \
+            "its block had not staged"
+        for c_start in range(0, q, qt):           # for (c = c0; c < q; ...)
+            c = c_start + c0
+            w = act & (c < q)
+            rows = (e0 + el[w])[:, None]
+            cols = c[w][:, None] * V + np.arange(V)[None, :]
+            np.add.at(writes, (np.broadcast_to(rows, cols.shape), cols), 1)
+    return writes
+
+
+@pytest.mark.parametrize("B", (1, 3, 4, 5, 8191, 16384))
+@pytest.mark.parametrize("dt", (4, 8, 32, 36))
+def test_b3_threads_write_every_output_float_once(B, dt):
+    for vec in (True, False):
+        writes = _replay_launch(4, B, dt, vec)
+        assert (writes == 1).all(), vec
+
+
+@pytest.mark.parametrize("K,B,dt,vec", [
+    (1, 700, 32, True), (2, 9, 8, True), (3, 1000, 36, True),
+    (4, 517, 33, False), (4, 40, 1, False), (4, 3, 1028, True),
+    (2, 5, 1027, False)])
+def test_b3_replay_takes_any_table_count_and_width(K, B, dt, vec):
+    # fewer tables than four, a width not a multiple of 4 (the scalar
+    # path), rows wider than one block's threads (walked in steps of 256)
+    assert (_replay_launch(K, B, dt, vec) == 1).all()
