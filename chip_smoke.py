@@ -111,7 +111,27 @@ Phases (each asserts; any failure exits non-zero and prints no result):
    ``off``) and its bound (B2 with its sort's device time, the library's
    deterministic route for its function and, for the item table, its
    atomic version's time; B1 for the pooled and the iid draw; B1 and B3
-   beside an empty kernel's time).
+   beside an empty kernel's time);
+12. the ``Trainer`` on config A as shipped (autotuned steps per dispatch,
+   the device epoch pipeline, three mid-epoch checkpoints an epoch): two
+   epochs and ``validate``, each with its seconds and examples/s, B1,
+   B2, B3, B4f and B4b counted through it; a second ``Trainer`` resumes
+   the first mid-epoch checkpoint and finishes the epoch with params and
+   Adam state equal bit for bit to the uninterrupted run's; a copy of
+   that checkpoint with a JAX key as its rng leaf loads and warns;
+13. the quality gate through the port's CLI (``python -m
+   ncf_tpu_torch.cli``): the ``indep40`` recipe of
+   ``scripts/seed_study.py`` (as overrides of ``advanced_ncf_ml1m.yaml``)
+   at seed 0, ``train`` then ``evaluate --protocol full`` on the best
+   checkpoint, whose sampled and full hr@10 must each lie within
+   3 sd sqrt(1 + 1/N) of the reference's mean over its N seeds
+   (``results/variance.jsonl``).
+
+    python3 chip_smoke.py --gate   # builds the kernels, then only the gate
+
+runs every recipe (``indep40``, ``indep_seq``, ``joint`` at 24 epochs)
+at its reference seed count and holds each mean within
+3 sqrt(sd_ref^2/N_ref + sd_port^2/N_port) of the reference's.
 
 Without a card, or run alone in a directory without the package, it
 prints why on standard output and standard error and exits 2.
@@ -3061,6 +3081,362 @@ def phase_timing_slice4(torch, topk):
     log("slice4_timing_json: " + json.dumps(rows))
     return rows
 
+# ------------------------------------------------- the Trainer and the gate
+
+SMOKE_DIR = os.path.join(ROOT, "_smoke")     # git-ignored scratch space
+TRAINER_SAVES = 3         # mid-epoch checkpoints an epoch, trainer phase
+TRAINER_EPOCHS = 2
+VARIANCE = os.path.join(ROOT, "results", "variance.jsonl")
+# scripts/seed_study.py::build_cfg as overrides of advanced_ncf_ml1m.yaml
+# (the yaml already sets the widths, dropout, bf16, batch 16384, the
+# learning rate, the decay, 100 eval negatives and the synthetic log)
+GATE_COMMON = ["data.validation_days=10", "train.early_stopping_patience=8",
+               "train.lr_schedule=cosine", "train.log_every_steps=200",
+               "train.steps_per_dispatch=1"]
+# recipe -> (overrides, the epochs budget its reference rows were run at,
+# seeds of the reference band)
+GATE_RECIPES = {
+    "indep40": (["model.candidate_mode=independent", "train.num_epochs=40",
+                 "train.early_stopping_metric=hr@10"], 40, 5),
+    "indep_seq": (["model.candidate_mode=independent",
+                   "model.use_sequence=true", "model.history_len=50",
+                   "train.num_epochs=40",
+                   "train.early_stopping_metric=hr@10"], 40, 5),
+    "joint": (["model.candidate_mode=joint", "train.num_epochs=24",
+               "train.early_stopping_metric=val_loss"], 24, 3),
+}
+TRAINER_KERNELS = ("tree_sample_negatives", "onehot_scatter_add",
+                   "fused_lookup_sum", "fused_tower_fwd", "fused_tower_bwd")
+
+
+def _clone_tree(torch, tree):
+    from ncf_tpu_torch.convert import tree_map
+
+    return tree_map(lambda x: x.clone() if isinstance(x, torch.Tensor)
+                    else x, tree)
+
+
+def _trees_equal(torch, a, b, what):
+    from ncf_tpu_torch.train.checkpoint import _leaves_with_path
+
+    la, lb = dict(_leaves_with_path(a)), dict(_leaves_with_path(b))
+    check(la.keys() == lb.keys(), f"{what}: the trees differ in their leaves")
+    differ = [k for k in la if not torch.equal(la[k], lb[k])]
+    check(not differ, f"{what}: leaves differ in their bits: {differ[:5]}")
+    return len(la)
+
+
+class _Warnings:
+    """Collect the warnings a logger emits while it is entered."""
+
+    def __init__(self, name):
+        import logging
+
+        self.logger, self.records = logging.getLogger(name), []
+        self.handler = logging.Handler(logging.WARNING)
+        self.handler.emit = self.records.append
+
+    def __enter__(self):
+        self.logger.addHandler(self.handler)
+        return self
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self.handler)
+
+    def text(self):
+        return " ".join(r.getMessage() for r in self.records)
+
+
+def _trainer_cfg(ckpt_dir, spd=None):
+    from ncf_tpu_torch.utils.config import Config
+
+    cfg = Config.from_yaml(ML1M)
+    cfg.train.checkpoint_dir = ckpt_dir
+    if spd is not None:
+        cfg.train.steps_per_dispatch = spd
+    return cfg
+
+
+def _jax_format_copy(src, dst):
+    """``src`` with its rng leaf replaced by a JAX key (uint32[2], as the
+    JAX package's ``Trainer`` saves it under its default generator)."""
+    import shutil
+
+    import numpy as np
+
+    shutil.rmtree(dst, ignore_errors=True)
+    shutil.copytree(src, dst)
+    with open(os.path.join(dst, "manifest.json")) as f:
+        manifest = json.load(f)
+    meta = manifest["leaves"]["rng"]
+    np.save(os.path.join(dst, meta["file"]), np.asarray([0, 1], np.uint32))
+    meta["dtype"] = "uint32"
+    with open(os.path.join(dst, "manifest.json"), "w") as f:
+        json.dump(manifest, f)
+    return dst
+
+
+def phase_trainer(torch, card):
+    """The ``Trainer`` on ``advanced_ncf_ml1m.yaml`` as shipped (autotuned
+    steps per dispatch, the device epoch pipeline, ``TRAINER_SAVES``
+    mid-epoch checkpoints an epoch) over the ML-1M-scale synthetic
+    log: ``TRAINER_EPOCHS`` epochs, then ``validate``.  A second Trainer
+    resumes from the first mid-epoch checkpoint and finishes epoch 0 in
+    the same bits as the uninterrupted run; a third loads that checkpoint
+    with a JAX key as its rng leaf and must warn.  Returns (launches of
+    the training kernels through the Trainer, summary)."""
+    import shutil
+
+    import numpy as np
+
+    from ncf_tpu_torch.train import Trainer
+    from ncf_tpu_torch.train import checkpoint as ckpt_lib
+
+    root = os.path.join(SMOKE_DIR, "trainer")
+    shutil.rmtree(root, ignore_errors=True)
+    cfg = _trainer_cfg(os.path.join(root, "a"))
+    check(cfg.model.fused_tower == "auto", "trainer: fused_tower is not auto")
+    inter, _ = _data(cfg)
+    counters = _launch_counters()
+    for c in counters.values():
+        c.reset()
+    t0 = time.perf_counter()
+    t = Trainer(cfg, inter)
+    setup_s = time.perf_counter() - t0
+    K = cfg.train.steps_per_dispatch
+    check(t.device_pipeline is not None, "trainer: no device pipeline")
+    steps = len(t.device_pipeline)
+    # three mid-epoch checkpoints an epoch, at the K autotune chose
+    every = -(-steps // K) // TRAINER_SAVES
+    check(every > 0, f"trainer: {steps} steps in dispatches of {K} leave no "
+          f"room for a mid-epoch checkpoint")
+    cfg.train.checkpoint_every_dispatches = every
+    log(f"trainer: set up in {setup_s:.1f} s (autotune chose "
+        f"steps_per_dispatch={K}), {steps} steps an epoch of "
+        f"{cfg.train.batch_size}, {len(t.train_inter)} train rows, a "
+        f"checkpoint every {every} dispatches")
+    epochs = []
+    snapshot = None
+    for e in range(TRAINER_EPOCHS):
+        m = t.train_epoch(e)
+        check(np.isfinite(m.get("loss", 0.0)), f"trainer: epoch {e} loss")
+        epochs.append({"epoch": e, "seconds": m["epoch_seconds"],
+                       "examples_per_s": m["examples_per_s"],
+                       "ms_per_step": m["epoch_seconds"] / steps * 1e3,
+                       "loss": m.get("loss")})
+        log(f"trainer: epoch {e} {m['epoch_seconds']!r} s, "
+            f"{m['examples_per_s']!r} examples/s, "
+            f"{m['epoch_seconds'] / steps * 1e3!r} ms a step; {card}")
+        if e == 0:
+            # the uninterrupted run's state after epoch 0, and its first
+            # mid-epoch checkpoint (copied: retention may delete it)
+            mids = [p for p, m_ in _mid_epoch(cfg.train.checkpoint_dir)
+                    if m_["epoch"] == 0]
+            check(mids, "trainer: no mid-epoch checkpoint in epoch 0")
+            first = shutil.copytree(mids[0], os.path.join(root, "mid0"))
+            snapshot = (_clone_tree(torch, t.params),
+                        _clone_tree(torch, t.opt_state), t.global_step)
+    t0 = time.perf_counter()
+    val = t.validate(TRAINER_EPOCHS - 1)
+    torch.cuda.synchronize()
+    validate_s = time.perf_counter() - t0
+    launches = {k: counters[k].value for k in TRAINER_KERNELS}
+    for k, n in launches.items():
+        check(n > 0, f"trainer: {k} never launched through the Trainer")
+    check(all(np.isfinite(v) for v in val.values()),
+          f"trainer: validate gave {val}")
+    chance = 10.0 / (1 + cfg.data.num_eval_negatives)
+    check(val["hr@10"] > chance, f"trainer: hr@10 {val['hr@10']!r} is not "
+          f"above chance {chance!r} after {TRAINER_EPOCHS} epochs")
+    log(f"trainer: validate {validate_s!r} s, val_loss {val['val_loss']!r}, "
+        f"hr@10 {val['hr@10']!r}; launches {json.dumps(launches)}")
+
+    # the mid-epoch resume, bit for bit
+    params0, opt0, step0 = snapshot
+    cfg_b = _trainer_cfg(os.path.join(root, "b"), spd=K)
+    tb = Trainer(cfg_b, inter)
+    check(tb.resume(first), "trainer: resume failed")
+    with open(os.path.join(first, "manifest.json")) as f:
+        dispatch = json.load(f)["extra"]["dispatch"]
+    check(tb.start_epoch == 0 and tb._resume_dispatch == dispatch,
+          "trainer: resume did not re-enter epoch 0")
+    tb.train_epoch(0)
+    check(tb.global_step == step0, f"trainer: resumed run at step "
+          f"{tb.global_step}, the uninterrupted one at {step0}")
+    n = _trees_equal(torch, tb.params, params0, "trainer: resumed params")
+    n += _trees_equal(torch, tb.opt_state, opt0, "trainer: resumed moments")
+    log(f"trainer: resumed from dispatch {dispatch} of epoch 0 and finished "
+        f"it: {n} leaves of params and Adam state equal bit for bit")
+    del tb
+
+    # a checkpoint whose rng leaf is a JAX key: loads, warns
+    jdir = _jax_format_copy(first, os.path.join(root, "jax_format"))
+    tc = Trainer(_trainer_cfg(os.path.join(root, "c"), spd=K), inter)
+    with _Warnings("ncf_tpu_torch.train.trainer") as w:
+        check(tc.resume(jdir), "trainer: resume of the JAX-format copy")
+    check("no rng key" in w.text(), "trainer: no warning for the JAX key")
+    want, _ = ckpt_lib.restore(first, {"params": tc.params})
+    _trees_equal(torch, tc.params, want["params"], "trainer: JAX-format "
+                 "params")
+    log(f"trainer: the JAX-format copy loaded and warned: {w.text()!r}")
+    del tc, t
+    torch.cuda.empty_cache()
+    shutil.rmtree(root, ignore_errors=True)
+    return launches, {"steps_per_dispatch": K, "setup_s": setup_s,
+                      "steps_per_epoch": steps, "epochs": epochs,
+                      "validate_s": validate_s,
+                      "val_loss": val["val_loss"], "hr@10": val["hr@10"],
+                      "resume_dispatch": dispatch, "launches": launches}
+
+
+def _mid_epoch(ckpt_dir):
+    out = []
+    for name in sorted(os.listdir(ckpt_dir)):
+        mf = os.path.join(ckpt_dir, name, "manifest.json")
+        if os.path.isfile(mf):
+            with open(mf) as f:
+                m = json.load(f)
+            if (m.get("extra") or {}).get("in_epoch"):
+                out.append((os.path.join(ckpt_dir, name), m))
+    return out
+
+
+def _reference_bands():
+    """recipe -> {"sampled"/"full": (mean, sd, N)} of hr@10 over the
+    reference's seeds (``results/variance.jsonl``, the rows at the epochs
+    budget of ``GATE_RECIPES``)."""
+    rows = [json.loads(x) for x in open(VARIANCE) if x.strip()]
+    out = {}
+    for recipe, (_, epochs, n) in GATE_RECIPES.items():
+        mine = [r for r in rows if r["config"] == recipe
+                and r["epochs_budget"] == epochs]
+        check(len(mine) == n, f"gate: {len(mine)} reference rows for "
+              f"{recipe}, want {n}")
+        out[recipe] = {p: (statistics.mean(r[p]["hr@10"] for r in mine),
+                           statistics.stdev(r[p]["hr@10"] for r in mine), n)
+                       for p in ("sampled", "full")}
+    return out
+
+
+def _cli(argv):
+    """Run the port's CLI in this process; (exit code, its stdout)."""
+    import contextlib
+    import io
+
+    from ncf_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    return rc, buf.getvalue()
+
+
+def _gate_run(recipe, seed, card):
+    """One recipe at one seed through the port's CLI: ``train``, then
+    ``evaluate --protocol full`` on the best checkpoint."""
+    import ast
+    import shutil
+
+    from ncf_tpu_torch.train import checkpoint as ckpt_lib
+
+    d = os.path.join(SMOKE_DIR, "gate", f"{recipe}_s{seed}")
+    shutil.rmtree(d, ignore_errors=True)
+    ov = (GATE_COMMON + GATE_RECIPES[recipe][0]
+          + [f"train.seed={seed}", f"train.checkpoint_dir={d}",
+             f"train.metrics_file={os.path.join(d, 'metrics.jsonl')}"])
+    common = ["--config", ML1M, "--log-level", "WARNING"]
+    t0 = time.perf_counter()
+    rc, _ = _cli(["train"] + common + ov)
+    train_s = time.perf_counter() - t0
+    check(rc == 0, f"gate[{recipe} s{seed}]: train exited {rc}")
+    best = ckpt_lib.find_best(d)
+    check(best is not None, f"gate[{recipe} s{seed}]: no best checkpoint")
+    with open(os.path.join(best, "manifest.json")) as f:
+        manifest = json.load(f)
+    with open(os.path.join(d, "metrics.jsonl")) as f:
+        vals = [json.loads(x) for x in f]
+    curve = [[r["epoch"], round(r["hr@10"], 5), round(r["val_loss"], 5)]
+             for r in vals if r["kind"] == "val"]
+    t0 = time.perf_counter()
+    rc, out = _cli(["evaluate", "--protocol", "full"] + common + ov)
+    eval_s = time.perf_counter() - t0
+    check(rc == 0, f"gate[{recipe} s{seed}]: evaluate exited {rc}")
+    full = next(ast.literal_eval(line.partition(" ")[2])
+                for line in out.splitlines() if line.startswith("full "))
+    run = {"recipe": recipe, "seed": seed, "best_epoch": manifest["epoch"],
+           "epochs_run": len(curve),
+           "sampled_hr10": manifest["metrics"]["hr@10"],
+           "full_hr10": full["hr@10"], "train_s": train_s, "eval_s": eval_s}
+    log(f"gate[{recipe} s{seed}]: {json.dumps(run)}; {card}")
+    log(f"gate[{recipe} s{seed}]: epoch, hr@10, val_loss {json.dumps(curve)}")
+    shutil.rmtree(d, ignore_errors=True)
+    return run
+
+
+def _memoized_interactions():
+    """The CLI builds its log anew on every call; the generator is
+    deterministic, so the gate builds each log once."""
+    from ncf_tpu_torch import cli
+
+    load, cache = cli._load_interactions, {}
+
+    def cached(cfg):
+        key = json.dumps(cfg.to_dict()["data"], sort_keys=True)
+        if key not in cache:
+            cache[key] = load(cfg)
+        return cache[key]
+
+    cli._load_interactions = cached
+
+
+def phase_gate(torch, card, full_gate):
+    """The quality gate through the port's CLI.  By default ``indep40`` at
+    seed 0, which must land in the single-run band of the reference's
+    seeds (|x - mean| <= 3 sd sqrt(1 + 1/N)) in sampled and full hr@10;
+    with ``full_gate`` every recipe at its N seeds, each mean within
+    3 sqrt(sd_ref^2/N_ref + sd_port^2/N_port) of the reference's."""
+    import math
+
+    _memoized_interactions()
+    bands = _reference_bands()
+    t_phase = time.perf_counter()
+    runs = []
+    plan = ([(r, s) for r, (_, _, n) in GATE_RECIPES.items()
+             for s in range(n)] if full_gate else [("indep40", 0)])
+    for recipe, seed in plan:
+        runs.append(_gate_run(recipe, seed, card))
+    misses, table = [], []
+    for recipe in dict.fromkeys(r for r, _ in plan):
+        mine = [r for r in runs if r["recipe"] == recipe]
+        for proto in ("sampled", "full"):
+            mean_r, sd_r, n_r = bands[recipe][proto]
+            xs = [r[f"{proto}_hr10"] for r in mine]
+            mean_p = statistics.mean(xs)
+            sd_p = statistics.stdev(xs) if len(xs) > 1 else None
+            if full_gate:
+                limit = 3 * math.sqrt(sd_r ** 2 / n_r
+                                      + sd_p ** 2 / len(xs))
+            else:
+                limit = 3 * sd_r * math.sqrt(1 + 1 / n_r)
+            ok = abs(mean_p - mean_r) <= limit
+            row = {"recipe": recipe, "protocol": proto, "n_port": len(xs),
+                   "port_mean": mean_p, "port_sd": sd_p,
+                   "ref_mean": mean_r, "ref_sd": sd_r, "n_ref": n_r,
+                   "limit": limit, "gap": mean_p - mean_r, "ok": ok,
+                   "wall_s": sum(r["train_s"] + r["eval_s"] for r in mine)}
+            table.append(row)
+            log(f"gate: {recipe} {proto} hr@10 port {mean_p!r} (sd {sd_p!r}, "
+                f"N {len(xs)}) vs reference {mean_r!r} (sd {sd_r!r}, N "
+                f"{n_r}): gap {mean_p - mean_r!r}, limit {limit!r} -> "
+                f"{'in' if ok else 'OUT OF'} band")
+            if not ok:
+                misses.append(f"{recipe} {proto}")
+    added = time.perf_counter() - t_phase
+    log("gate_json: " + json.dumps({"runs": runs, "table": table,
+                                    "seconds": added, "card": card}))
+    check(not misses, f"gate: out of band: {misses}")
+    return added
+
 
 def main() -> int:
     import torch
@@ -3101,6 +3477,13 @@ def main() -> int:
     secs = _kernels.build_all()
     log(f"build: nvcc {' '.join(_kernels.NVCC_FLAGS)} "
         f"{', '.join(s + '.cu' for s in _kernels.SOURCES)} in {secs:.1f} s")
+    if "--gate" in sys.argv[1:]:
+        gate_s = phase_gate(torch, card, full_gate=True)
+        log(f"phase gate {gate_s:.1f} s (every recipe at its N seeds)")
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
     tower_sass, segmax_sass = phase_sass(_kernels)
     log("build: fused_tower SASS " + json.dumps(tower_sass))
     log("build: topk_segmax SASS " + json.dumps(segmax_sass))
@@ -3187,6 +3570,16 @@ def main() -> int:
     t0 = time.perf_counter()
     train_rows, _ = phase_training_timing(torch)
     log(f"phase training_timing {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    trainer_launches, trainer_summary = phase_trainer(torch, card)
+    for k, v in trainer_launches.items():
+        launches[k] += v
+    log(f"phase trainer {time.perf_counter() - t0:.1f} s")
+    log("trainer_json: " + json.dumps(trainer_summary))
+
+    gate_s = phase_gate(torch, card, full_gate=False)
+    log(f"phase gate {gate_s:.1f} s (indep40, seed 0, through the CLI)")
 
     # one timed shape per kernel: the serving bucket for B5, the pooled
     # stratified draw for B1, the item table for B2, the step for B3, the

@@ -8,16 +8,19 @@ imports ``torch`` and numpy, never JAX and nothing of ``ncf_tpu``.
 Ported so far: the serving path, ``ModelServer`` -> ``AdvancedNCFScorer``
 -> ``ops.topk.topk_scores_streaming``, and the training step,
 ``train.step.make_train_step`` over AdvancedNCF in training mode with its
-sampler, embedding-gradient scatter and temporal lookup-sum, and the
-evaluators (``evals.DeviceEvaluator``, ``evals.FullCatalogEvaluator``).
+sampler, embedding-gradient scatter and temporal lookup-sum, the
+evaluators (``evals.DeviceEvaluator``, ``evals.FullCatalogEvaluator``),
+and the loop around them: ``train.Trainer``, checkpoint saving and the
+``train`` / ``evaluate`` command line (``python -m ncf_tpu_torch.cli``).
 Each kernel
 is hand-written CUDA C++ for ``sm_90a`` (``ops/csrc/*.cu``, built with
 ``nvcc`` at first use and bound with ``ctypes``).
 
 Package layout
 --------------
-- ``ncf_tpu_torch.data``    — synthetic logs, interactions, the batch
-                              iterator (NumPy copies), the device
+- ``ncf_tpu_torch.data``    — synthetic and MovieLens logs,
+                              interactions, the host batch iterator and
+                              the device epoch pipeline, the device
                               negative samplers and the host eval
                               sampler.
 - ``ncf_tpu_torch.evals``   — metrics, and the sampled and full-catalog
@@ -29,10 +32,13 @@ Package layout
                               scatter-add, temporal sum and the CUDA
                               kernel loader.
 - ``ncf_tpu_torch.serving`` — AdvancedNCFScorer and ModelServer.
-- ``ncf_tpu_torch.train``   — the training step, Adam and schedules, and
-                              checkpoint restore (npy manifest format).
-- ``ncf_tpu_torch.utils``   — config (a copy of the JAX package's) and
+- ``ncf_tpu_torch.train``   — the Trainer, the training step, Adam and
+                              schedules, autotune, and checkpoints (npy
+                              manifest format, both packages).
+- ``ncf_tpu_torch.utils``   — config, metrics logging and the artifact
+                              store (copies of the JAX package's), and
                               device selection.
+- ``ncf_tpu_torch.cli``     — ``train`` and ``evaluate``.
 - ``ncf_tpu_torch.convert`` — numpy <-> port param trees and Adam state.
 
 Entry points take ``device=`` and default to ``"cuda"``; without a card

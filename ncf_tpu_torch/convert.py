@@ -41,7 +41,9 @@ def tree_leaves(tree: Any) -> List[Any]:
 
 
 def array_to_tensor(arr, device: torch.device) -> torch.Tensor:
-    arr = np.ascontiguousarray(arr)
+    shape = np.shape(arr)
+    # ascontiguousarray makes a 0-d array 1-d: keep the shape
+    arr = np.ascontiguousarray(arr).reshape(shape)
     if not arr.flags.writeable:            # torch tensors alias writable memory
         arr = arr.copy()
     # copy=True: the tensor never aliases the caller's array (the

@@ -12,6 +12,8 @@ from typing import Dict, Sequence
 
 import torch
 
+from ncf_tpu_torch.ops.topk import _topk_lowest_index
+
 
 def positive_ranks(scores: torch.Tensor) -> torch.Tensor:
     """Rank (0-based) of column 0's score within each row; ties go
@@ -63,7 +65,8 @@ def accuracy_stats(logits: torch.Tensor,
 def _topk_relevance(scores: torch.Tensor, targets: torch.Tensor,
                     k: int) -> torch.Tensor:
     """Relevance (0/1) of the top-k scored items per row: [B, k]."""
-    idx = torch.topk(scores, k, dim=1).indices
+    # ties to the lower index, as the reference's ``lax.top_k``
+    idx = _topk_lowest_index(scores, k)[1].long()
     return torch.take_along_dim(targets, idx, dim=1)
 
 

@@ -484,8 +484,9 @@ class SequenceRescoreScorer(AdvancedNCFScorer):
             hit = (cand[:, :, None] == excl[:, None, :]).any(-1)
             logits = torch.where(hit, torch.full_like(logits, -np.inf),
                                  logits)
-        vals, sel = torch.topk(logits, min(k, fetch), dim=1)
-        vals, idxs = _to_host(vals, torch.gather(cand, 1, sel))
+        # ties to the lower index, as the reference's ``lax.top_k``
+        vals, sel = _topk_lowest_index(logits, min(k, fetch))
+        vals, idxs = _to_host(vals, torch.gather(cand, 1, sel.long()))
         return _sigmoid(vals), idxs
 
     @torch.no_grad()

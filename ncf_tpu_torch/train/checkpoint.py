@@ -1,25 +1,34 @@
-"""Checkpoint restore and discovery in the JAX package's npy manifest
-format (``ncf_tpu/train/checkpoint.py``): a directory of ``.npy`` leaves
-keyed by their tree path plus ``manifest.json``.  Checkpoints written by
-the JAX package load here unchanged.
+"""Checkpoint save, restore, discovery and retention in the JAX
+package's npy manifest format (``ncf_tpu/train/checkpoint.py``): a
+directory ``ckpt_{step:08d}`` of ``.npy`` leaves keyed by their tree path
+plus ``manifest.json`` (``format_version`` 1; step, epoch, metrics,
+config, ``extra``).  Checkpoints move between the packages both ways.
 
 ``restore`` is template-driven (a tree of like leaves, e.g. from
-``init(..., device="meta")``) and checks every shape.  ``save`` comes with
-the training slice; the orbax backend is not supported.
+``init(..., device="meta")``) and checks every shape.  ``save`` copies
+every leaf to the host before it returns, so the next in-place step
+cannot reach a leaf being written.  The optimizer state is written under
+optax's names (``named_opt_state``), so that the JAX package's ``Trainer``
+reads the port's Adam moments and the port reads the reference's.  The
+orbax backend is not supported: it is a JAX library.
 """
 
 from __future__ import annotations
 
 import json
+import logging
 import os
 import re
-from typing import Any, Dict, Iterator, Optional, Tuple
+import shutil
+from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from ncf_tpu_torch.convert import array_to_tensor
+from ncf_tpu_torch.convert import _to_numpy, array_to_tensor
 from ncf_tpu_torch.utils.device import DeviceLike, resolve_device
+
+log = logging.getLogger(__name__)
 
 MANIFEST = "manifest.json"
 BEST_LINK = "best"
@@ -48,6 +57,82 @@ def _rebuild(tree: Any, leaves: Dict[str, Any], prefix: str = "") -> Any:
             _rebuild(v, leaves, f"{prefix}.{i}" if prefix else str(i))
             for i, v in enumerate(tree))
     return leaves[prefix or "leaf"]
+
+
+def _leaf_filename(path_s: str) -> str:
+    return path_s.replace("/", "_") + ".npy"
+
+
+def named_opt_state(state: Dict[str, Any], clip_norm: float,
+                    weight_decay: float) -> Dict[str, Any]:
+    """The port's Adam state under the leaf names of the reference's
+    optax chain (``ncf_tpu/train/optim.py::make_optimizer``): the clip and
+    the L2 decay hold no leaves, Adam's state sits at index ``[clip > 0] +
+    [decay > 0]`` and the schedule's count one after it."""
+    a = int((clip_norm or 0) > 0) + int((weight_decay or 0) > 0)
+    return {str(a): {"count": state["count"], "mu": state["mu"],
+                     "nu": state["nu"]},
+            str(a + 1): {"count": state["count"]}}
+
+
+def opt_state_from_named(named: Dict[str, Any]) -> Dict[str, Any]:
+    """Inverse of ``named_opt_state``: the Adam entry, whose count the
+    port keeps (optax advances both counts together)."""
+    a = min(named, key=int)
+    adam = named[a]
+    return {"count": adam["count"], "mu": adam["mu"], "nu": adam["nu"]}
+
+
+def wait_for_pending() -> None:
+    """No-op: the port saves synchronously (the reference waits here for
+    its asynchronous orbax saves)."""
+
+
+def save(
+    directory: str,
+    tree: Any,
+    step: int = 0,
+    epoch: int = 0,
+    metrics: Optional[Dict[str, float]] = None,
+    config: Optional[Dict[str, Any]] = None,
+    process_index: Optional[int] = None,
+    backend: str = "native",
+    async_save: bool = False,
+    extra: Optional[Dict[str, Any]] = None,
+) -> str:
+    """Write ``tree`` under ``directory/ckpt_{step:08d}``: one ``.npy`` a
+    leaf (tensors copied to the host; bf16 widened to f32, which is
+    exact; Python numbers as ``scalar`` entries) and the manifest.
+    Returns the checkpoint directory."""
+    if backend != "native" or async_save:
+        raise NotImplementedError(
+            f"checkpoint backend {backend!r} is not supported; use native")
+    del process_index                       # one process: it writes all
+    ckpt_dir = os.path.join(directory, f"ckpt_{step:08d}")
+    os.makedirs(ckpt_dir, exist_ok=True)
+    leaf_meta: Dict[str, Dict[str, Any]] = {}
+    for path_s, leaf in _leaves_with_path(tree):
+        if not hasattr(leaf, "shape"):      # a Python number
+            leaf_meta[path_s] = {"kind": "scalar", "value": float(leaf)}
+            continue
+        arr = _to_numpy(leaf)
+        fname = _leaf_filename(path_s)
+        np.save(os.path.join(ckpt_dir, fname), arr)
+        leaf_meta[path_s] = {"kind": "dense", "file": fname,
+                             "dtype": str(arr.dtype)}
+    manifest = {
+        "step": int(step),
+        "epoch": int(epoch),
+        "metrics": {k: float(v) for k, v in (metrics or {}).items()},
+        "config": config or {},
+        "extra": extra or {},
+        "leaves": leaf_meta,
+        "format_version": 1,
+    }
+    with open(os.path.join(ckpt_dir, MANIFEST), "w") as f:
+        json.dump(manifest, f, indent=1)
+    log.info("checkpoint saved: %s", ckpt_dir)
+    return ckpt_dir
 
 
 def _load_leaf(ckpt_dir: str, meta: Dict[str, Any]) -> np.ndarray:
@@ -107,8 +192,52 @@ def find_latest(directory: str) -> Optional[str]:
     return os.path.join(directory, max(steps)[1])
 
 
+def mark_best(directory: str, ckpt_dir: str) -> None:
+    """Point ``directory/best`` at the given checkpoint (a relative
+    symlink, replaced atomically)."""
+    link = os.path.join(directory, BEST_LINK)
+    target = os.path.basename(ckpt_dir)
+    tmp = link + ".tmp"
+    if os.path.islink(tmp) or os.path.exists(tmp):
+        os.remove(tmp)
+    os.symlink(target, tmp)
+    os.replace(tmp, link)
+
+
 def find_best(directory: str) -> Optional[str]:
     link = os.path.join(directory, BEST_LINK)
     if os.path.islink(link):
         return os.path.join(directory, os.readlink(link))
     return None
+
+
+def _is_mid_epoch(directory: str, name: str) -> bool:
+    try:
+        with open(os.path.join(directory, name, MANIFEST)) as f:
+            return bool((json.load(f).get("extra") or {}).get("in_epoch"))
+    except OSError:
+        return False
+
+
+def garbage_collect(directory: str, keep: int = 3,
+                    in_epoch_only: bool = False) -> List[str]:
+    """Delete old checkpoints, keeping the newest ``keep`` plus whatever
+    ``best`` points at.  ``in_epoch_only=True`` deletes only mid-epoch
+    checkpoints (manifest ``extra.in_epoch``), so frequent mid-epoch saves
+    never cycle the epoch-boundary ones out."""
+    if not os.path.isdir(directory):
+        return []
+    best = find_best(directory)
+    best_name = os.path.basename(best) if best else None
+    ckpts = sorted(
+        (name for name in os.listdir(directory) if _CKPT_RE.match(name)),
+        key=lambda n: int(_CKPT_RE.match(n).group(1)))
+    if in_epoch_only:
+        ckpts = [n for n in ckpts if _is_mid_epoch(directory, n)]
+    removed = []
+    for name in ckpts[:-keep] if keep > 0 else []:
+        if name == best_name:
+            continue
+        shutil.rmtree(os.path.join(directory, name), ignore_errors=True)
+        removed.append(name)
+    return removed

@@ -262,6 +262,29 @@ def test_general_metrics_match(C):
     assert float(tmetrics.auc(ts, torch.zeros_like(tt))) == 0.5
 
 
+@pytest.mark.parametrize("C,k", [(7, 1), (200, 10)])
+def test_general_metrics_match_on_tied_scores(C, k):
+    """Integer scores tie: the top-k's ties go to the lower index, as the
+    reference's ``lax.top_k`` breaks them."""
+    rng = np.random.default_rng(0)
+    scores = np.zeros((64, C), np.float32)
+    half = C // 2
+    scores[:, :half] = rng.integers(0, 3, (64, half))
+    targets = (rng.random((64, C)) < 0.2).astype(np.float32)
+    ts, tt = torch.from_numpy(scores), torch.from_numpy(targets)
+    js, jt = jnp.asarray(scores), jnp.asarray(targets)
+    for name in ("hit_rate_at_k", "ndcg_at_k", "mrr_at_k", "map_at_k"):
+        got = float(getattr(tmetrics, name)(ts, tt, k))
+        want = float(getattr(jmetrics, name)(js, jt, k))
+        assert abs(got - want) <= METRIC_TOL, (name, k, got, want)
+    got, want = float(tmetrics.auc(ts, tt)), float(jmetrics.auc(js, jt))
+    assert abs(got - want) <= METRIC_TOL
+    gm = tmetrics.calculate_metrics(ts, tt, ks=(1, k))
+    jm = jmetrics.calculate_metrics(js, jt, ks=(1, k))
+    for key in jm:
+        assert abs(float(gm[key]) - float(jm[key])) <= METRIC_TOL, key
+
+
 # ----------------------------------------------------- sampled protocol
 
 def test_sampled_protocol_matches(setup, monkeypatch):

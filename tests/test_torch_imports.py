@@ -36,7 +36,10 @@ def test_every_module_is_listed():
                  "ncf_tpu_torch.evals.evaluate",
                  "ncf_tpu_torch.evals.full_eval", "ncf_tpu_torch.train.optim",
                  "ncf_tpu_torch.train.step", "ncf_tpu_torch.ops.tower",
-                 "ncf_tpu_torch.ops.gather", "ncf_tpu_torch.models.ncf"):
+                 "ncf_tpu_torch.ops.gather", "ncf_tpu_torch.models.ncf",
+                 "ncf_tpu_torch.train.trainer", "ncf_tpu_torch.train.autotune",
+                 "ncf_tpu_torch.utils.logging", "ncf_tpu_torch.utils.artifacts",
+                 "ncf_tpu_torch.data.movielens", "ncf_tpu_torch.cli"):
         assert name in mods
 
 
@@ -149,3 +152,26 @@ def test_the_kernel_loader_builds_nothing_on_import():
                                        "topk_common.cuh"))
     assert os.path.basename(_kernels._target("topk_exact")[1]).startswith(
         "libtopk_exact_")
+
+
+def test_training_entry_points_default_to_the_card(monkeypatch):
+    from ncf_tpu_torch import cli
+    from ncf_tpu_torch.data import generate_interactions
+    from ncf_tpu_torch.data.pipeline import (DeviceEpochPipeline,
+                                             prefetch_to_device)
+    from ncf_tpu_torch.train import Trainer
+    from ncf_tpu_torch.utils.config import Config
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    inter = generate_interactions(num_users=20, num_items=15, num_days=10,
+                                  avg_txns_per_user=4, seed=0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Trainer(Config(), inter)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DeviceEpochPipeline(inter, 8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        next(prefetch_to_device(iter([{"a": [1]}])))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main(["evaluate", "data.synthetic_users=20",
+                  "data.synthetic_items=15"])
+    assert DeviceEpochPipeline(inter, 8, device="cpu").device.type == "cpu"

@@ -395,6 +395,31 @@ def test_sequence_scorer_matches(seq_model, temporal):
           js.topk_for_users_hourly(users, hour=8, k=5))
 
 
+def test_sequence_scorer_ties_go_to_the_lower_index():
+    """A catalog small enough that excluded items (all scoring -inf, 0
+    after the sigmoid) stay in the answer: their ids follow the
+    reference's ``lax.top_k``, ties to the lower index."""
+    users, items = 300, 12
+    jcfg, tcfg = _cfgs(users, items, 64)
+    np_params = _params(jcfg, seed=2)
+    hist = _history(users, items, 11)
+    rng = np.random.default_rng(9)
+    dept = rng.integers(0, 3, items).astype(np.int32)
+    cat = rng.integers(0, 5, items).astype(np.int32)
+    js = JSeqScorer(_j(np_params), jcfg.model, jnp.asarray(dept),
+                    jnp.asarray(cat), user_history=hist, sample_users=100)
+    ts = SequenceRescoreScorer(params_from_numpy(np_params, "cpu"),
+                               tcfg.model, torch.from_numpy(dept),
+                               torch.from_numpy(cat), user_history=hist,
+                               sample_users=100)
+    ids = np.asarray([0, 7, 150, 299])
+    exclude = np.stack([rng.permutation(items)[:6] for _ in ids])
+    got = ts.topk_for_users(ids, k=10, exclude=exclude)
+    want = js.topk_for_users(ids, k=10, exclude=exclude)
+    assert (np.asarray(want[0]) == 0).sum() == 4 * len(ids)
+    _same(got, want)
+
+
 def test_model_server_with_user_history(seq_model):
     jcfg, tcfg, np_params, hist, dept, cat = seq_model
     js = JServer(jcfg, params=_j(np_params), item_dept=dept, item_cat=cat,
