@@ -125,7 +125,27 @@ Phases (each asserts; any failure exits non-zero and prints no result):
    at seed 0, ``train`` then ``evaluate --protocol full`` on the best
    checkpoint, whose sampled and full hr@10 must each lie within
    3 sd sqrt(1 + 1/N) of the reference's mean over its N seeds
-   (``results/variance.jsonl``).
+   (``results/variance.jsonl``);
+14. the HTTP API over the bigvocab server (between phases 4 and 5, while
+   its weights are alive): ``RecommendationAPI`` through ``dispatch``
+   under ``exact`` (B5) and ``int8`` (B6), single, temporal and
+   64-customer answers equal to ``ModelServer``'s in the same call, the
+   intelligence route with and without ``hour`` under
+   ``set_impl("pallas")`` (B7), health, metrics and index refresh;
+   ``ProductSearch`` over the 4M item embeddings at ``"auto"`` (B5),
+   ``"pallas"`` (B8) and ``"segmented"`` (B9), B=64 and 1, held by
+   ``compare_topk`` against the plain versions; the same API over
+   loopback HTTP (single, batch, 64 concurrent POSTs, ``/demo``); p50
+   and p99 of ``dispatch`` and HTTP for 1 and 64 customers beside
+   ``ModelServer.recommend``'s, and ``find_neighbors``'s host and
+   device ms (``api_json``);
+15. the API at ML-1M width over phase 13's checkpoint with the feature
+   store and ``exclude_purchased``, the CLI's ``score``, ``export
+   --users`` (read back and searched), ``consolidate`` (served again)
+   and ``demo --hour 9``, ``cli serve`` as a process of its own
+   (start-up seconds, /health, one answer), and the API over the
+   sequence config with histories (B4f, ``history_attention``;
+   ``api_ml1m_json``).  Any 5xx or error record fails the run.
 
     python3 chip_smoke.py --gate   # builds the kernels, then only the gate
 
@@ -3331,9 +3351,11 @@ def _cli(argv):
     return rc, buf.getvalue()
 
 
-def _gate_run(recipe, seed, card):
+def _gate_run(recipe, seed, card, keep=False):
     """One recipe at one seed through the port's CLI: ``train``, then
-    ``evaluate --protocol full`` on the best checkpoint."""
+    ``evaluate --protocol full`` on the best checkpoint.  With ``keep``
+    the run's directory stays (``run["dir"]``, its overrides under
+    ``run["overrides"]``) for the caller to delete."""
     import ast
     import shutil
 
@@ -3369,6 +3391,8 @@ def _gate_run(recipe, seed, card):
            "full_hr10": full["hr@10"], "train_s": train_s, "eval_s": eval_s}
     log(f"gate[{recipe} s{seed}]: {json.dumps(run)}; {card}")
     log(f"gate[{recipe} s{seed}]: epoch, hr@10, val_loss {json.dumps(curve)}")
+    if keep:
+        return dict(run, dir=d, best=best, overrides=ov)
     shutil.rmtree(d, ignore_errors=True)
     return run
 
@@ -3394,7 +3418,9 @@ def phase_gate(torch, card, full_gate):
     seed 0, which must land in the single-run band of the reference's
     seeds (|x - mean| <= 3 sd sqrt(1 + 1/N)) in sampled and full hr@10;
     with ``full_gate`` every recipe at its N seeds, each mean within
-    3 sqrt(sd_ref^2/N_ref + sd_port^2/N_port) of the reference's."""
+    3 sqrt(sd_ref^2/N_ref + sd_port^2/N_port) of the reference's.
+    Returns (seconds, the default run with its kept directory, or None
+    with ``full_gate``)."""
     import math
 
     _memoized_interactions()
@@ -3404,7 +3430,7 @@ def phase_gate(torch, card, full_gate):
     plan = ([(r, s) for r, (_, _, n) in GATE_RECIPES.items()
              for s in range(n)] if full_gate else [("indep40", 0)])
     for recipe, seed in plan:
-        runs.append(_gate_run(recipe, seed, card))
+        runs.append(_gate_run(recipe, seed, card, keep=not full_gate))
     misses, table = [], []
     for recipe in dict.fromkeys(r for r, _ in plan):
         mine = [r for r in runs if r["recipe"] == recipe]
@@ -3435,7 +3461,707 @@ def phase_gate(torch, card, full_gate):
     log("gate_json: " + json.dumps({"runs": runs, "table": table,
                                     "seconds": added, "card": card}))
     check(not misses, f"gate: out of band: {misses}")
-    return added
+    return added, (None if full_gate else runs[0])
+
+
+# ------------------------------------------------------------ API (A3)
+
+API_REC = "/api/v1/recommendations"
+API_BATCH = "/api/v1/recommendations/batch"
+API_INTEL = "/api/v1/intelligence"
+API_TIMING = ("inference_time_ms", "total_time_ms", "uptime_s")
+API_ITERS = (200, 200)    # timed requests of 1 and of 64 customers
+
+
+def _api_call(api, method, path, body, what):
+    """``api.dispatch``; any status but 2xx fails the run (a kernel that
+    fails inside a request surfaces only as a 500)."""
+    status, payload = api.dispatch(method, path, body)
+    check(200 <= status < 300, f"api {what}: status {status}: {payload}")
+    return payload
+
+
+def _http(url, body=None, timeout=60):
+    """(status, decoded body, headers) of one request to the API."""
+    import urllib.error
+    import urllib.request
+
+    data = json.dumps(body).encode() if body is not None else None
+    req = urllib.request.Request(
+        url, data=data, method="POST" if data is not None else "GET",
+        headers={"Content-Type": "application/json"} if data else {})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            raw, status, headers = resp.read(), resp.status, resp.headers
+    except urllib.error.HTTPError as e:
+        raw, status, headers = e.read(), e.code, e.headers
+    ctype = headers.get("Content-Type", "")
+    return (status, json.loads(raw) if ctype.startswith("application/json")
+            else raw.decode(), dict(headers))
+
+
+def _http_ok(url, body, what):
+    status, payload, _ = _http(url, body)
+    check(200 <= status < 300, f"http {what}: status {status}: {payload}")
+    return payload
+
+
+def _untimed(x):
+    if isinstance(x, dict):
+        return {k: _untimed(v) for k, v in x.items() if k not in API_TIMING}
+    if isinstance(x, list):
+        return [_untimed(v) for v in x]
+    return x
+
+
+def _same_recs(recs, scores, ids, what, tol=0.0):
+    """An answer's records against (scores, ids) of ``ModelServer``: equal
+    ids and ranks, scores equal (``tol`` 0) or within ``tol``.  Returns
+    the largest score difference."""
+    import numpy as np
+
+    got_ids = [int(r["product_id"]) for r in recs]
+    check(got_ids == [int(i) for i in ids],
+          f"{what}: ids {got_ids} != the server's {list(map(int, ids))}")
+    check([r["rank"] for r in recs] == list(range(1, len(recs) + 1)),
+          f"{what}: ranks")
+    err = float(np.max(np.abs(np.asarray([r["score"] for r in recs])
+                              - np.asarray(scores, np.float64))))
+    check(err <= tol, f"{what}: scores differ from the server's by {err}")
+    return err
+
+
+def _pcts(ms):
+    import numpy as np
+
+    return {"p50_ms": float(np.percentile(ms, 50)),
+            "p99_ms": float(np.percentile(ms, 99)),
+            "max_ms": float(np.max(ms)), "n": len(ms)}
+
+
+def _timed_ms(fn):
+    t0 = time.perf_counter()
+    fn()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def _no_errors(api, what):
+    summary = api.metrics.summary()
+    check(summary.get("errors", 0) == 0,
+          f"{what}: {summary.get('errors')} error records in the metrics")
+    return summary
+
+
+def _api_requests(api, server, users, what):
+    """Single and batch requests through ``dispatch``, each held to the
+    same request of ``ModelServer`` in this call; their latencies beside
+    ``ModelServer.recommend``'s.  Returns the latency summary."""
+    import numpy as np
+
+    u = int(users[0])
+    body1 = {"customer_id": str(u), "num_recommendations": 10}
+    rec = _api_call(api, "POST", API_REC, body1, f"{what} single")
+    s, i, _ = server.recommend(u, k=10)
+    _same_recs(rec["recommendations"], s, i, f"{what} single")
+    temporal = {"hour": 18, "day": 4, "month": 11, "day_of_year": 320}
+    rec = _api_call(api, "POST", API_REC, dict(body1, context={"hour": 18,
+                    "day": 4, "month": 11, "day_of_year": 320}),
+                    f"{what} temporal")
+    s, i, _ = server.recommend(u, k=10, temporal=temporal)
+    _same_recs(rec["recommendations"], s, i, f"{what} temporal")
+    body64 = {"customer_ids": [str(int(x)) for x in users],
+              "num_recommendations": 10}
+    batch = _api_call(api, "POST", API_BATCH, body64, f"{what} batch")
+    s, i, _ = server.recommend_batch(users, k=10)
+    check(len(batch["results"]) == len(users), f"{what} batch: results")
+    for r, res in enumerate(batch["results"]):
+        check(res["customer_id"] == str(int(users[r])), f"{what} batch: ids")
+        _same_recs(res["recommendations"], s[r], i[r], f"{what} batch {r}")
+
+    n1, n64 = API_ITERS
+    one, direct, many = [], [], []
+    for j in range(n1):
+        uj = int(users[j % len(users)])
+        direct.append(_timed_ms(lambda: server.recommend(uj, k=10)))
+        one.append(_timed_ms(lambda: api.dispatch(
+            "POST", API_REC, {"customer_id": str(uj),
+                              "num_recommendations": 10})))
+    for _ in range(n64):
+        many.append(_timed_ms(lambda: api.dispatch("POST", API_BATCH,
+                                                   body64)))
+    out = {"dispatch_1": _pcts(one), "dispatch_64": _pcts(many),
+           "recommend_1": _pcts(direct)}
+    for n, fn in ((1, lambda: api.dispatch("POST", API_REC, body1)),
+                  (64, lambda: api.dispatch("POST", API_BATCH, body64))):
+        prof = device_profile(fn, 20)
+        if prof is not None:
+            log("profile_json: " + json.dumps(
+                {"what": f"api dispatch[{what}] {n} customer(s)", **prof}))
+            out[f"dispatch_{n}_profile"] = {
+                k: prof[k] for k in ("busy_share", "device_ms_per_call",
+                                     "host_self_ms_per_call")}
+    return out
+
+
+def _api_http(api, server, users, what):
+    """The API over loopback (``serve(..., background=True)``): single and
+    batch POSTs equal to ``dispatch``'s answers apart from the timing
+    fields, 64 threads each POSTing one customer at once (coalesced
+    behind the handler; ids equal to ``dispatch``'s, scores within 1e-6),
+    ``GET /demo``, and the latencies of 1 and 64 customers."""
+    import threading
+
+    from ncf_tpu_torch.api import serve
+    from ncf_tpu_torch.api.demo_page import DEMO_HTML
+
+    httpd = serve(api, host="127.0.0.1", port=0, background=True)
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        u = int(users[0])
+        body1 = {"customer_id": str(u), "num_recommendations": 10}
+        body64 = {"customer_ids": [str(int(x)) for x in users],
+                  "num_recommendations": 10}
+        for path, body in ((API_REC, body1), (API_BATCH, body64)):
+            got = _http_ok(base + path, body, f"{what} {path}")
+            want = _api_call(api, "POST", path, body, f"{what} {path}")
+            check(_untimed(got) == _untimed(want),
+                  f"http {what} {path}: the answer differs from dispatch's")
+        status, html, headers = _http(base + "/demo")
+        check(status == 200 and html == DEMO_HTML
+              and headers.get("Content-Type", "").startswith("text/html")
+              and "no-store" in headers.get("Cache-Control", ""),
+              f"http {what}: GET /demo")
+
+        want = {int(x): _api_call(api, "POST", API_REC,
+                                  {"customer_id": str(int(x))},
+                                  f"{what} single {int(x)}")
+                for x in users}
+        got, errors = {}, []
+        barrier = threading.Barrier(len(users))
+
+        def post(uid):
+            try:
+                barrier.wait(timeout=60)
+                got[uid] = _http(base + API_REC, {"customer_id": str(uid)})
+            except Exception as e:  # noqa: BLE001 — reported below
+                errors.append(repr(e))
+
+        coal = server._coalescer
+        b0 = coal.batched_calls if coal is not None else 0
+        threads = [threading.Thread(target=post, args=(int(x),))
+                   for x in users]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        check(not errors and not any(t.is_alive() for t in threads),
+              f"http {what}: concurrent POSTs failed: {errors[:3]}")
+        worst = 0.0
+        for uid, (status, payload, _) in got.items():
+            check(status == 200, f"http {what} concurrent {uid}: {status}")
+            w = want[uid]["recommendations"]
+            worst = max(worst, _same_recs(
+                payload["recommendations"], [r["score"] for r in w],
+                [r["product_id"] for r in w], f"http {what} concurrent {uid}",
+                tol=1e-6))
+        batched = coal.batched_calls - b0 if coal is not None else 0
+        log(f"api_http[{what}]: 64 concurrent POSTs answered, {batched} "
+            f"coalesced batches, largest score difference to dispatch "
+            f"{worst!r}")
+
+        n1, n64 = API_ITERS
+        one = [_timed_ms(lambda j=j: _http_ok(
+            base + API_REC, {"customer_id": str(int(users[j % len(users)])),
+                             "num_recommendations": 10}, what))
+            for j in range(n1)]
+        many = [_timed_ms(lambda: _http_ok(base + API_BATCH, body64, what))
+                for _ in range(n64)]
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    return {"http_1": _pcts(one), "http_64": _pcts(many),
+            "concurrent_64": {"coalesced_batches": batched,
+                              "max_score_diff": worst}}
+
+
+def _api_intelligence(api, server, u, what):
+    """The dashboard route with and without ``hour``, under the gather
+    kernel B7 (``set_impl("pallas")``), held to ``recommend`` and
+    ``recommend_hourly`` and, apart from the timing fields, equal to the
+    same request's answer under ``"xla"`` (the gather is exact, so every
+    statistic agrees bit for bit); then health, metrics and index
+    refresh, after which the single request answers as before.  Returns
+    (metrics, {table: [the ids the route gathered]})."""
+    import numpy as np
+
+    from ncf_tpu_torch.ops import embedding
+
+    gathered = {"user_emb": [], "item_emb": []}
+    for hour in (None, 9):
+        body = {"customer_id": str(u), "num_recommendations": 10}
+        if hour is not None:
+            body["hour"] = hour
+        embedding.set_impl("pallas")
+        try:
+            out = _api_call(api, "POST", API_INTEL, body,
+                            f"{what} intelligence hour={hour}")
+        finally:
+            embedding.set_impl("xla")
+        plain = _api_call(api, "POST", API_INTEL, body,
+                          f"{what} intelligence hour={hour} xla")
+        check(_untimed(out) == _untimed(plain),
+              f"{what} intelligence hour={hour}: the payload under B7 "
+              f"differs from the plain gather's")
+        s, i, _ = (server.recommend(u, k=10) if hour is None
+                   else server.recommend_hourly(u, hour=hour, k=10))
+        _same_recs(out["recommendations"], s, i,
+                   f"{what} intelligence hour={hour}")
+        intel = out["intelligence"]
+        heads = np.asarray(intel["attention_head_importance"])
+        check(len(heads) == server.cfg.model.num_heads
+              and np.isfinite(heads).all()
+              and abs(sum(intel["component_importance"].values()) - 1)
+              < 1e-6 and len(intel["normalized_scores"]) == 10,
+              f"{what} intelligence: payload {intel}")
+        # the route's gathers: its 32 sample users and their candidates
+        sample = np.arange(min(32, server.cfg.model.num_users))
+        gathered["user_emb"].append(sample)
+        gathered["item_emb"].append(np.tile(np.asarray(i)[None, :],
+                                            (len(sample), 1)))
+    body1 = {"customer_id": str(u), "num_recommendations": 10}
+    before = _api_call(api, "POST", API_REC, body1, f"{what} single")
+    check(_api_call(api, "GET", "/health", None, what)["status"] == "healthy",
+          f"{what}: health")
+    refreshed = _api_call(api, "POST", "/api/v1/index/refresh", {},
+                          f"{what} refresh")
+    check(refreshed["status"] == "refreshed", f"{what}: refresh {refreshed}")
+    after = _api_call(api, "POST", API_REC, body1, f"{what} single")
+    check(_untimed(after) == _untimed(before),
+          f"{what}: the answer moved across an index refresh")
+    return _api_call(api, "GET", "/metrics", None, f"{what} metrics"), gathered
+
+
+def _b7_route_check(torch, gather, params, gathered):
+    """B7 against ``gather_rows_ref``, bit for bit, on the tables the
+    intelligence route gathered from (the user table, [12M, 128] f32, is
+    5.7 GiB, past 32-bit byte offsets): the route's own ids, and rows
+    spread over each table to its last (int64 and int32 ids).  Returns
+    the number of cases."""
+    n = 0
+    for name, ids in gathered.items():
+        table = params[name]
+        rows = table.shape[0]
+        spread = torch.cat([
+            torch.arange(0, rows, max(rows // 4096, 1), device="cuda"),
+            torch.tensor([rows - 1], device="cuda")])
+        cases = [torch.as_tensor(i, dtype=torch.long, device="cuda")
+                 for i in ids] + [spread, spread.to(torch.int32)]
+        for i in cases:
+            got = gather.gather_rows(table, i)
+            torch.cuda.synchronize()
+            check(torch.equal(got, gather.gather_rows_ref(table, i)),
+                  f"B7 on the intelligence route's {name} "
+                  f"{list(table.shape)} ids {tuple(i.shape)} {i.dtype}: "
+                  f"kernel != plain version")
+            n += 1
+    return n
+
+
+def _search_case(torch, topk, ps, plain, q, res, what):
+    """Hold ``find_neighbors``'s answer for queries ``q`` through
+    ``compare_topk`` against ``plain``, the plain version of the kernel
+    that answered (the exact top-k where none launched); recall@k
+    against the exact top-k.  Returns (max |value - plain|, recall)."""
+    import numpy as np
+
+    qn = q / np.maximum(np.linalg.norm(q, axis=1, keepdims=True), 1e-12)
+    qt = torch.from_numpy(np.ascontiguousarray(qn)).to("cuda")
+    kv = torch.tensor([[v for _, v in r] for r in res], dtype=torch.float32,
+                      device="cuda")
+    ki = torch.tensor([[i for i, _ in r] for r in res], dtype=torch.long,
+                      device="cuda")
+    k = kv.shape[1]
+    rv, ri = plain(qt, ps._emb, k)
+    err, _ = compare_topk(kv, ki, rv, ri, qt, ps._emb, None, what,
+                          cast_q=False)
+    _, ei = topk.topk_scores_xla(qt, ps._emb, k)
+    hits = sum(len(set(a) & set(b)) for a, b in zip(ki.tolist(), ei.tolist()))
+    return err, hits / ki.numel()
+
+
+def _api_search(torch, topk, server, users):
+    """``ProductSearch`` over the server's item MLP embeddings (cosine) at
+    ``impl`` ``"auto"`` (B5 at B=64; B=1 takes the dense path),
+    ``"pallas"`` (B8) and ``"segmented"`` (B9), queries the users' MLP
+    embeddings, B=64 and 1: each answer held by ``compare_topk``
+    against the plain version, each kernel's counter must rise;
+    ``find_neighbors``'s host and device ms at B=64.  Returns (summary,
+    {kernel: max |kernel - plain|})."""
+    import numpy as np
+
+    from ncf_tpu_torch.serving import ProductSearch
+
+    I = server.cfg.model.num_items
+    t0 = time.perf_counter()
+    emb = server.get_product_embedding(np.arange(I))["mlp"]
+    q = server.get_user_embedding(users)["mlp"]
+    log(f"api_search: {list(emb.shape)} item embeddings in "
+        f"{time.perf_counter() - t0:.1f} s")
+    kernels = {"auto": "topk_scores_streaming", "pallas": "topk_scores_pallas",
+               "segmented": "topk_scores_segmented"}
+    summary, errs = {}, {}
+    for impl, name in kernels.items():
+        counter = getattr(topk, name).launches
+        t0 = time.perf_counter()
+        ps = ProductSearch(emb, metric="cosine", impl=impl, device="cuda")
+        build_s = time.perf_counter() - t0
+        n0 = counter.value
+        res64 = ps.find_neighbors(q, 10)
+        n64 = counter.value - n0
+        res1 = ps.find_neighbors(q[:1], 10)
+        n1 = counter.value - n0 - n64
+        check(n64 == 1 and n1 == (0 if impl == "auto" else 1),
+              f"ProductSearch[{impl}]: {name} launches {n64}, {n1}")
+        ref = getattr(topk, name + "_ref")
+
+        def plain(n):     # the kernel's plain version where it launched
+            return ref if n else topk.topk_scores_xla
+
+        e64, r64 = _search_case(torch, topk, ps, plain(n64), q, res64,
+                                f"ProductSearch[{impl}] B=64")
+        e1, r1 = _search_case(torch, topk, ps, plain(n1), q[:1], res1,
+                              f"ProductSearch[{impl}] B=1")
+        errs[name] = max(e64, e1)
+        host = [_timed_ms(lambda: ps.find_neighbors(q, 10))
+                for _ in range(20)]
+        host1 = [_timed_ms(lambda: ps.find_neighbors(q[:1], 10))
+                 for _ in range(20)]
+        device_ms = device_split(lambda: ps.find_neighbors(q, 10), 10)[0]
+        summary[impl] = {
+            "kernel_b64": name, "build_s": build_s,
+            "host_ms_b64": float(np.median(host)),
+            "host_ms_b1": float(np.median(host1)),
+            "device_ms_b64": device_ms, "recall_at_10_vs_exact_b64": r64,
+            "recall_at_10_vs_exact_b1": r1, "max_abs_err_vs_plain": errs[name],
+            "stats": ps.get_index_stats()}
+        log(f"api_search[{impl}]: {json.dumps(summary[impl])}")
+        del ps
+        torch.cuda.empty_cache()
+    return summary, errs
+
+
+def phase_api(torch, topk, big, ModelServer, card):
+    """The HTTP API over the bigvocab server at full width (12M users x
+    4M items): ``RecommendationAPI`` without a feature processor, through
+    ``dispatch``, under ``retrieval="exact"`` (B5) and ``"int8"`` (B6):
+    single, temporal and 64-customer requests equal to ``ModelServer``'s
+    answers in this call; under ``exact`` also the intelligence route with
+    and without ``hour`` (B7 through ``set_impl("pallas")``), health,
+    metrics and index refresh, ``ProductSearch`` at 4M items (B5, B8,
+    B9), and the same API over loopback HTTP (single, batch, 64
+    concurrent POSTs, ``/demo``).  Any 5xx or error record fails the
+    run.  Returns ({kernel: launches}, summary, {kernel: max |kernel -
+    plain|})."""
+    import numpy as np
+
+    from ncf_tpu_torch.api import RecommendationAPI
+    from ncf_tpu_torch.ops import gather
+
+    cfg, params, dept, cat, rng = big
+    cfg.train.checkpoint_dir = os.path.join(SMOKE_DIR, "api_none")
+    counters = {"topk_scores_streaming": topk.topk_scores_streaming.launches,
+                "topk_scores_streaming_int8":
+                    topk.topk_scores_streaming_int8.launches,
+                "gather_rows": gather.gather_rows.launches,
+                "topk_scores_pallas": topk.topk_scores_pallas.launches,
+                "topk_scores_segmented": topk.topk_scores_segmented.launches}
+    users = rng.choice(cfg.model.num_users, size=64,
+                       replace=False).astype(np.int32)
+    summary, errs = {"card": card}, {}
+    for c in counters.values():
+        c.reset()
+    for preset in ("exact", "int8"):
+        cfg.serving.retrieval = preset
+        t0 = time.perf_counter()
+        server = ModelServer(cfg, params=params, item_dept=dept,
+                             item_cat=cat, device="cuda")
+        api = RecommendationAPI(server)
+        try:
+            log(f"api[{preset}]: server ready in "
+                f"{time.perf_counter() - t0:.1f} s")
+            out = _api_requests(api, server, users, preset)
+            if preset == "exact":
+                n0 = counters["gather_rows"].value
+                out["metrics"], gathered = _api_intelligence(
+                    api, server, int(users[1]), preset)
+                check(counters["gather_rows"].value > n0,
+                      "api intelligence: B7 not launched")
+                out["search"], errs = _api_search(torch, topk, server, users)
+            out.update(_api_http(api, server, users, preset))
+            _no_errors(api, f"api[{preset}]")
+            summary[preset] = out
+            log(f"api[{preset}]: dispatch p50/p99 1 customer "
+                f"{out['dispatch_1']['p50_ms']!r}/{out['dispatch_1']['p99_ms']!r}"
+                f" ms, 64 {out['dispatch_64']['p50_ms']!r}/"
+                f"{out['dispatch_64']['p99_ms']!r} ms; HTTP 1 "
+                f"{out['http_1']['p50_ms']!r}/{out['http_1']['p99_ms']!r} ms, "
+                f"64 {out['http_64']['p50_ms']!r}/{out['http_64']['p99_ms']!r}"
+                f" ms; ModelServer.recommend p50 "
+                f"{out['recommend_1']['p50_ms']!r} ms; {card}")
+        finally:
+            server.close()
+        del server, api
+        torch.cuda.empty_cache()
+    launches = {k: c.value for k, c in counters.items()}
+    check(all(launches.values()), f"api: a kernel never launched {launches}")
+    # after the counts were read, so these comparison launches count nowhere
+    n7 = _b7_route_check(torch, gather, params, gathered)
+    log(f"api: gather_rows {n7} cases on the intelligence route's tables "
+        f"equal bit for bit")
+    errs["gather_rows"] = 0.0
+    return launches, summary, errs
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _start_cli_server(ckpt, overrides):
+    """``python -m ncf_tpu_torch.cli serve`` on a free loopback port in a
+    process of its own; (process, base URL, log path, start time)."""
+    port = _free_port()
+    os.makedirs(SMOKE_DIR, exist_ok=True)
+    log_path = os.path.join(SMOKE_DIR, "api_serve.log")
+    cmd = [sys.executable, "-m", "ncf_tpu_torch.cli", "serve", "--config",
+           ML1M, "--log-level", "WARNING", "--checkpoint",
+           ckpt, "--port", str(port)] + list(overrides)
+    with open(log_path, "w") as out:
+        proc = subprocess.Popen(cmd, cwd=ROOT, stdout=out,
+                                stderr=subprocess.STDOUT)
+    return proc, f"http://127.0.0.1:{port}", log_path, time.perf_counter()
+
+
+def _await_health(proc, base, log_path, t0, timeout_s=300):
+    """Seconds from the subprocess's start to its first 200 on /health."""
+    import urllib.error
+
+    while time.perf_counter() - t0 < timeout_s:
+        if proc.poll() is not None:
+            with open(log_path) as f:
+                tail = f.read()[-2000:]
+            check(False, f"cli serve exited {proc.returncode}: {tail}")
+        try:
+            status, body, _ = _http(base + "/health", timeout=5)
+            if status == 200 and body.get("status") == "healthy":
+                return time.perf_counter() - t0
+        except (urllib.error.URLError, ConnectionError, OSError):
+            pass
+        time.sleep(0.25)
+    check(False, f"cli serve: no /health within {timeout_s} s")
+
+
+def phase_api_ml1m(torch, card, gate_run):
+    """The API at ML-1M width over the gate run's ``indep40`` checkpoint,
+    with features (``FeatureProcessor(FeatureStore(log))``) and
+    ``exclude_purchased``; the CLI's ``score``, ``export --users``,
+    ``consolidate`` and ``demo --hour 9`` (the export read back and
+    searched, the consolidated checkpoint served); ``cli serve`` as a
+    process of its own (start-up seconds, /health, one recommendation
+    equal to the in-process API's); and the API over the sequence config
+    (``advanced_ncf_quality.yaml`` with histories), which launches B4f and
+    answers ``history_attention``.  Deletes the gate run's directory.
+    Returns ({kernel: launches}, summary)."""
+    import shutil
+
+    import numpy as np
+
+    from ncf_tpu_torch import cli
+    from ncf_tpu_torch.api import RecommendationAPI
+    from ncf_tpu_torch.models import advanced_ncf
+    from ncf_tpu_torch.ops import tower
+    from ncf_tpu_torch.serving import (FeatureProcessor, FeatureStore,
+                                       ModelServer, ProductSearch,
+                                       load_embeddings_jsonl)
+    from ncf_tpu_torch.utils.config import Config
+
+    best, ov = gate_run["best"], gate_run["overrides"]
+    out_dir = os.path.join(SMOKE_DIR, "api_ml1m")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    summary = {"card": card}
+    proc, base, serve_log, t_start = _start_cli_server(best, ov)
+    try:
+        cfg = Config.from_yaml(ML1M)
+        cfg.apply_overrides(ov)
+        inter = cli._load_interactions(cfg)
+        cfg.model.num_users, cfg.model.num_items = (inter.num_users,
+                                                    inter.num_items)
+        cfg.model.num_departments = inter.num_departments
+        cfg.model.num_categories = inter.num_categories
+        t0 = time.perf_counter()
+        server = ModelServer.from_checkpoint(
+            cfg, best, item_dept=inter.item_dept, item_cat=inter.item_cat,
+            device="cuda")
+        proc_f = FeatureProcessor(FeatureStore(inter))
+        api = RecommendationAPI(server, proc_f)
+        summary["api_ready_s"] = time.perf_counter() - t0
+        try:
+            rng = np.random.default_rng(5)
+            excluded = 0
+            for u in rng.choice(inter.num_users, 8, replace=False).tolist():
+                seen = [h["item_id"] for h in
+                        proc_f.get_features(u)["sequence"]]
+                out = _api_call(api, "POST", API_REC,
+                                {"customer_id": str(u),
+                                 "exclude_purchased": True}, "ml1m exclude")
+                got = [int(r["product_id"]) for r in out["recommendations"]]
+                check(not set(got) & set(seen),
+                      f"ml1m: customer {u} was served an excluded item")
+                s, i, _ = server.recommend(u, k=10, exclude_items=seen)
+                _same_recs(out["recommendations"], s, i, f"ml1m exclude {u}")
+                check(all(r["metadata"]["department"] is not None
+                          and r["explanation"]
+                          for r in out["recommendations"]),
+                      "ml1m: a record without its enrichment")
+                excluded += len(seen)
+            body7 = {"customer_id": "7"}
+            want7 = _api_call(api, "POST", API_REC, body7, "ml1m single")
+            s, i, _ = server.recommend(7, k=10)
+            _same_recs(want7["recommendations"], s, i, "ml1m single")
+            summary["excluded_items_checked"] = excluded
+
+            common = ["--config", ML1M, "--log-level", "WARNING"] + list(ov)
+            csv = os.path.join(out_dir, "scores.csv")
+            t0 = time.perf_counter()
+            rc, _ = _cli(["score", "--checkpoint", best, "--num-users", "100",
+                          "--output", csv] + common)
+            summary["cli_score_s"] = time.perf_counter() - t0
+            check(rc == 0, f"cli score exited {rc}")
+            cu = np.random.default_rng(0).choice(inter.num_users, 100,
+                                                 replace=False)
+            s, i, _ = server.recommend_batch(cu, k=10)
+            with open(csv) as f:
+                rows = [line.split(",") for line in f.read().splitlines()[1:]]
+            check([int(r[1]) for r in rows] == i.reshape(-1).tolist()
+                  and [int(r[0]) for r in rows] == np.repeat(cu, 10).tolist(),
+                  "cli score: the CSV differs from recommend_batch")
+
+            items_p = os.path.join(out_dir, "items.jsonl")
+            users_p = os.path.join(out_dir, "users.jsonl")
+            t0 = time.perf_counter()
+            rc, _ = _cli(["export", "--checkpoint", best, "--output", items_p,
+                          "--users", "--users-output", users_p] + common)
+            summary["cli_export_s"] = time.perf_counter() - t0
+            check(rc == 0, f"cli export exited {rc}")
+            ids, mat = load_embeddings_jsonl(items_p)
+            uids, umat = load_embeddings_jsonl(users_p)
+            check(mat.shape == (inter.num_items, cfg.model.mlp_dim)
+                  and umat.shape == (inter.num_users, cfg.model.mlp_dim)
+                  and ids == [str(x) for x in range(inter.num_items)],
+                  f"cli export: shapes {mat.shape}, {umat.shape}")
+            raw = server.get_product_embedding(
+                np.arange(inter.num_items))["mlp"]
+            q = server.get_user_embedding(np.arange(64))["mlp"]
+            a = ProductSearch(mat, ids=ids).find_neighbors(q, 10)
+            b = ProductSearch(raw, ids=ids).find_neighbors(q, 10)
+            va, vb = (np.asarray([[v for _, v in r] for r in x])
+                      for x in (a, b))
+            check(np.abs(va - vb).max() <= 1e-5,
+                  "search over the export: scores differ beyond 1e-5")
+            pos = {int(i): v for r in b for i, v in r}
+            for ra, rb in zip(a, b):
+                for (ia, _), (ib, _) in zip(ra, rb):
+                    check(ia == ib or abs(pos.get(int(ia), -9) - pos[int(ib)])
+                          <= 1e-5, f"search over the export: {ia} != {ib}")
+            summary["export_search_max_diff"] = float(np.abs(va - vb).max())
+
+            cons = os.path.join(out_dir, "consolidated")
+            rc, _ = _cli(["consolidate", "--checkpoint", best, "--output",
+                          cons] + common)
+            check(rc == 0, f"cli consolidate exited {rc}")
+            again = ModelServer.from_checkpoint(
+                cfg, cons, item_dept=inter.item_dept,
+                item_cat=inter.item_cat, device="cuda")
+            try:
+                s2, i2, _ = again.recommend(7, k=10)
+            finally:
+                again.close()
+            _same_recs(want7["recommendations"], s2, i2,
+                       "the consolidated checkpoint")
+
+            rc, text = _cli(["demo", "--checkpoint", best, "--customer", "7",
+                             "--hour", "9"] + common)
+            check(rc == 0 and "hour-of-day=9" in text
+                  and "Model intelligence" in text, f"cli demo: {rc} {text}")
+            summary["demo_lines"] = len(text.splitlines())
+
+            summary["serve_startup_s"] = _await_health(proc, base, serve_log,
+                                                       t_start)
+            got = _http_ok(base + API_REC, body7, "cli serve")
+            w = want7["recommendations"]
+            summary["serve_max_score_diff"] = _same_recs(
+                got["recommendations"], [r["score"] for r in w],
+                [r["product_id"] for r in w], "cli serve", tol=1e-6)
+            _no_errors(api, "api ml1m")
+        finally:
+            server.close()
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=30)
+        shutil.rmtree(out_dir, ignore_errors=True)
+        shutil.rmtree(gate_run["dir"], ignore_errors=True)
+    log(f"api_ml1m: cli serve up in {summary['serve_startup_s']:.1f} s; "
+        f"export {summary['cli_export_s']:.2f} s; {card}")
+
+    # the sequence config with histories: B4f rescoring behind the API
+    cfg = Config.from_yaml(QUALITY)
+    inter, train_inter = _data(cfg)
+    cfg.model.num_users, cfg.model.num_items = inter.num_users, inter.num_items
+    cfg.model.num_departments = inter.num_departments
+    cfg.model.num_categories = inter.num_categories
+    hist = train_inter.recent_history(cfg.model.history_len)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    server = ModelServer(cfg, params=advanced_ncf.init(gen, cfg.model),
+                         item_dept=inter.item_dept, item_cat=inter.item_cat,
+                         user_history=hist, device="cuda")
+    api = RecommendationAPI(server)
+    b4f = tower.fused_tower.fwd_launches
+    b4f.reset()
+    try:
+        users = np.arange(100, 1700, 100)
+        u = int(np.argmax((hist >= 0).sum(1) >= 5))   # a user with history
+        out = _api_call(api, "POST", API_REC, {"customer_id": str(u)},
+                        "sequence single")
+        s, i, _ = server.recommend(u, k=10)
+        _same_recs(out["recommendations"], s, i, "sequence single")
+        batch = _api_call(api, "POST", API_BATCH,
+                          {"customer_ids": [str(u) for u in users]},
+                          "sequence batch")
+        s, i, _ = server.recommend_batch(users, k=10)
+        for r, res in enumerate(batch["results"]):
+            _same_recs(res["recommendations"], s[r], i[r],
+                       f"sequence batch {r}")
+        intel = _api_call(api, "POST", API_INTEL, {"customer_id": str(u)},
+                          "sequence intelligence")["intelligence"]
+        weights = [h["weight"] for h in intel.get("history_attention", [])]
+        check(len(weights) == int((hist[u] >= 0).sum()) > 0
+              and abs(sum(weights) - 1) < 1e-3,
+              f"sequence intelligence: history_attention {weights}")
+        _no_errors(api, "api sequence")
+    finally:
+        server.close()
+    launches = {"fused_tower_fwd": b4f.value}
+    check(b4f.value > 0, "api sequence: B4f not launched")
+    summary["sequence_b4f_launches"] = b4f.value
+    return launches, summary
 
 
 def main() -> int:
@@ -3478,7 +4204,7 @@ def main() -> int:
     log(f"build: nvcc {' '.join(_kernels.NVCC_FLAGS)} "
         f"{', '.join(s + '.cu' for s in _kernels.SOURCES)} in {secs:.1f} s")
     if "--gate" in sys.argv[1:]:
-        gate_s = phase_gate(torch, card, full_gate=True)
+        gate_s, _ = phase_gate(torch, card, full_gate=True)
         log(f"phase gate {gate_s:.1f} s (every recipe at its N seeds)")
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3507,10 +4233,19 @@ def main() -> int:
         torch, topk, big, ModelServer)
     for name, e in served_err.items():
         max_err[name] = max(max_err[name], e)
-    del big
-    torch.cuda.empty_cache()
     log(f"phase serving_int8 {time.perf_counter() - t0:.1f} s")
     log("serving_int8_json: " + json.dumps(int8_summary))
+
+    t0 = time.perf_counter()
+    api_launches, api_summary, api_err = phase_api(torch, topk, big,
+                                                   ModelServer, card)
+    for name, e in api_err.items():
+        max_err[name] = max(max_err[name], e)
+    log(f"phase api {time.perf_counter() - t0:.1f} s, kernel launches "
+        f"{json.dumps(api_launches)}")
+    log("api_json: " + json.dumps(api_summary))
+    del big
+    torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
     b7_launches, ncf_summary = phase_serving_ncf(torch, ModelServer, Config)
@@ -3578,8 +4313,16 @@ def main() -> int:
     log(f"phase trainer {time.perf_counter() - t0:.1f} s")
     log("trainer_json: " + json.dumps(trainer_summary))
 
-    gate_s = phase_gate(torch, card, full_gate=False)
+    gate_s, gate_run = phase_gate(torch, card, full_gate=False)
     log(f"phase gate {gate_s:.1f} s (indep40, seed 0, through the CLI)")
+
+    t0 = time.perf_counter()
+    ml_launches, ml_summary = phase_api_ml1m(torch, card, gate_run)
+    log(f"phase api_ml1m {time.perf_counter() - t0:.1f} s, kernel launches "
+        f"{json.dumps(ml_launches)}")
+    log("api_ml1m_json: " + json.dumps(ml_summary))
+    for k, v in list(api_launches.items()) + list(ml_launches.items()):
+        launches[k] = launches.get(k, 0) + v
 
     # one timed shape per kernel: the serving bucket for B5, the pooled
     # stratified draw for B1, the item table for B2, the step for B3, the

@@ -2,7 +2,8 @@
 package's npy manifest format (``ncf_tpu/train/checkpoint.py``): a
 directory ``ckpt_{step:08d}`` of ``.npy`` leaves keyed by their tree path
 plus ``manifest.json`` (``format_version`` 1; step, epoch, metrics,
-config, ``extra``).  Checkpoints move between the packages both ways.
+config, ``extra``).  Checkpoints move between the packages both ways;
+``consolidate`` merges a sharded one into dense leaves for serving.
 
 ``restore`` is template-driven (a tree of like leaves, e.g. from
 ``init(..., device="meta")``) and checks every shape.  ``save`` copies
@@ -176,6 +177,31 @@ def restore(ckpt_dir: str, template: Any,
         t = array_to_tensor(arr, dev)
         loaded[path_s] = t.to(leaf.dtype) if isinstance(leaf, torch.Tensor) else t
     return _rebuild(template, loaded), manifest
+
+
+def consolidate(ckpt_dir: str, out_dir: str) -> str:
+    """Merge a checkpoint whose leaves may be split into shard files
+    (``"sharded"`` entries: each shard's file and its index ranges in the
+    global shape) into one dense ``.npy`` a leaf under ``out_dir``, with
+    the manifest rewritten to match (host NumPy; the reference's
+    ``checkpoint.consolidate``).  Returns ``out_dir``."""
+    with open(os.path.join(ckpt_dir, MANIFEST)) as f:
+        manifest = json.load(f)
+    os.makedirs(out_dir, exist_ok=True)
+    new_meta: Dict[str, Any] = {}
+    for path_s, meta in manifest["leaves"].items():
+        if meta["kind"] == "scalar":
+            new_meta[path_s] = meta
+            continue
+        arr = _load_leaf(ckpt_dir, meta)
+        fname = _leaf_filename(path_s)
+        np.save(os.path.join(out_dir, fname), arr)
+        new_meta[path_s] = {"kind": "dense", "file": fname,
+                            "dtype": str(arr.dtype)}
+    manifest["leaves"] = new_meta
+    with open(os.path.join(out_dir, MANIFEST), "w") as f:
+        json.dump(manifest, f, indent=1)
+    return out_dir
 
 
 def find_latest(directory: str) -> Optional[str]:

@@ -1,7 +1,9 @@
 """The port's CLI (``python -m ncf_tpu_torch.cli``): ``train`` then
 ``evaluate --protocol both`` on tiny synthetic data, ``--resume``, the
-datasets of ``_load_interactions`` against the JAX package's, and the
-evaluation of one checkpoint by both CLIs.
+datasets of ``_load_interactions`` against the JAX package's, the
+evaluation of one checkpoint by both CLIs, and every subcommand's refusal
+to run without a card unless asked for the CPU (the serving subcommands'
+parity is in ``tests/test_torch_serving_extras.py``).
 
 Tolerance: the two CLIs print metrics rounded to 4 digits; on the same
 checkpoint (f32, the same eval sets) they print the same numbers.
@@ -96,8 +98,7 @@ def test_train_resume(tmp_path, capsys):
 def test_bad_override_and_unknown_command_fail():
     with pytest.raises((SystemExit, ValueError)):
         cli.main(["train", "--device", "cpu", "bogus.key=1"])
-    for cmd in ("serve", "score", "export", "datagen", "demo", "doctor",
-                "consolidate"):
+    for cmd in ("doctor",):
         with pytest.raises(SystemExit):
             cli.main([cmd])
 
@@ -108,6 +109,28 @@ def test_defaults_to_the_card(tmp_path, monkeypatch):
     for cmd in ("train", "evaluate"):
         with pytest.raises(RuntimeError, match="CUDA"):
             cli.main([cmd] + ov)
+
+
+@pytest.mark.parametrize("cmd", ["score", "serve", "export", "consolidate",
+                                 "demo", "datagen"])
+def test_serving_subcommands_default_to_the_card(tmp_path, monkeypatch, cmd):
+    """Without a card each new subcommand raises before it loads data,
+    writes a file or starts a server; ``serve`` is also guarded by a
+    stand-in for ``api.serve`` that fails the test if it is reached."""
+    from ncf_tpu_torch import api
+
+    def no_server(*args, **kw):
+        raise AssertionError("a server was started")
+
+    monkeypatch.setattr(api, "serve", no_server)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    out = tmp_path / "out"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main([cmd, "--output", str(out)] if cmd in (
+            "score", "export", "consolidate", "datagen") else [cmd])
+    assert not out.exists()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main([cmd, "--device", "cuda"] + _overrides(tmp_path))
 
 
 def _write(tmp_path, fmt):
@@ -164,4 +187,6 @@ def test_runs_as_a_module():
                           "--help"], capture_output=True, text=True,
                          cwd=root, timeout=120)
     assert out.returncode == 0
-    assert "train" in out.stdout and "evaluate" in out.stdout
+    for cmd in ("train", "evaluate", "score", "serve", "export", "datagen",
+                "consolidate", "demo"):
+        assert cmd in out.stdout

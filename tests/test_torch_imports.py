@@ -39,7 +39,12 @@ def test_every_module_is_listed():
                  "ncf_tpu_torch.ops.gather", "ncf_tpu_torch.models.ncf",
                  "ncf_tpu_torch.train.trainer", "ncf_tpu_torch.train.autotune",
                  "ncf_tpu_torch.utils.logging", "ncf_tpu_torch.utils.artifacts",
-                 "ncf_tpu_torch.data.movielens", "ncf_tpu_torch.cli"):
+                 "ncf_tpu_torch.data.movielens", "ncf_tpu_torch.cli",
+                 "ncf_tpu_torch.serving.dtos", "ncf_tpu_torch.serving.cache",
+                 "ncf_tpu_torch.serving.features",
+                 "ncf_tpu_torch.serving.export", "ncf_tpu_torch.serving.ann",
+                 "ncf_tpu_torch.serving.intelligence", "ncf_tpu_torch.api",
+                 "ncf_tpu_torch.api.app", "ncf_tpu_torch.api.demo_page"):
         assert name in mods
 
 
@@ -59,11 +64,27 @@ def test_importing_the_port_loads_no_jax():
     assert out.returncode == 0, out.stdout + out.stderr
 
 
+def test_the_api_loads_neither_jax_nor_pydantic():
+    code = textwrap.dedent("""
+        import sys
+        import ncf_tpu_torch.api, ncf_tpu_torch.serving, ncf_tpu_torch.cli
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "ncf_tpu", "pydantic",
+                                            "pydantic_core"))
+        print(bad)
+        sys.exit(1 if bad else 0)
+    """)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
 def test_chip_smoke_imports_no_jax():
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     with open(os.path.join(root, "chip_smoke.py")) as f:
         src = f.read()
     assert "import jax" not in src and "from jax" not in src
+    assert "pydantic" not in src
     assert "ncf_tpu." not in src.replace("ncf_tpu_torch.", "")
 
 
@@ -175,3 +196,44 @@ def test_training_entry_points_default_to_the_card(monkeypatch):
         cli.main(["evaluate", "data.synthetic_users=20",
                   "data.synthetic_items=15"])
     assert DeviceEpochPipeline(inter, 8, device="cpu").device.type == "cpu"
+
+
+def test_serving_entry_points_default_to_the_card(monkeypatch, tmp_path):
+    import numpy as np
+
+    from ncf_tpu_torch.api import RecommendationAPI
+    from ncf_tpu_torch.models import advanced_ncf
+    from ncf_tpu_torch.serving import (ModelServer, ProductSearch,
+                                       export_product_embeddings,
+                                       export_user_embeddings)
+    from ncf_tpu_torch.utils.config import Config
+
+    cfg = Config()
+    cfg.model.num_users, cfg.model.num_items = 20, 15
+    cfg.model.mf_dim = cfg.model.mlp_dim = 8
+    cfg.model.temporal_dim, cfg.model.mlp_hidden_dims = 4, [8]
+    params = advanced_ncf.init(torch.Generator().manual_seed(0), cfg.model,
+                               device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    emb = np.eye(4, dtype=np.float32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ProductSearch(emb)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        export_product_embeddings(params, cfg, str(tmp_path / "p.jsonl"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        export_user_embeddings(params, cfg, str(tmp_path / "u.jsonl"))
+    assert not list(tmp_path.iterdir())
+    # the API's server is a ModelServer: it takes the card by default too
+    with pytest.raises(RuntimeError, match="CUDA"):
+        RecommendationAPI(ModelServer(cfg, params=params))
+    # asked for the CPU, they run there
+    assert ProductSearch(emb, device="cpu").find_neighbors(emb[1], 1)[0][0][0] == 1
+    server = ModelServer(cfg, params=params, device="cpu")
+    try:
+        assert RecommendationAPI(server).dispatch("GET", "/health",
+                                                  None)[0] == 200
+    finally:
+        server.close()
+    export_user_embeddings(params, cfg, str(tmp_path / "u.jsonl"),
+                           device="cpu")
+    assert (tmp_path / "u.jsonl").exists()
