@@ -145,13 +145,37 @@ Phases (each asserts; any failure exits non-zero and prints no result):
    and ``demo --hour 9``, ``cli serve`` as a process of its own
    (start-up seconds, /health, one answer), and the API over the
    sequence config with histories (B4f, ``history_attention``;
-   ``api_ml1m_json``).  Any 5xx or error record fails the run.
+   ``api_ml1m_json``).  Any 5xx or error record fails the run;
+16. big-vocabulary training at the full width of
+   ``configs/advanced_ncf_bigvocab.yaml`` (12M users x 4M items, batch
+   16,384, bf16, rowwise Adagrad, K 8) on seeded id batches: one sparse
+   step against one dense rowwise-Adagrad step from the same state with
+   the same negatives, dropout 0 and ``embedding_weight_decay`` 0 (each
+   leaf's change within ``BIG_STEP_TOL``, rows no id touches equal bit for
+   bit); two runs of 16 sparse steps from one state end in equal bits;
+   the loss falls over 30 dispatches of 8 steps, each step launching B1,
+   B2 (seven times: the five small tables and the two combines), B3, B4f
+   and B4b; host ms a step (median of five windows), device ms, its top
+   device kernels, busy share, examples/s and peak memory for the sparse
+   and the dense rowwise path; B1's iid draw over the 4M-entry CDF equal
+   to its plain version and timed beside the ML-1M draw;
+17. ``python -m ncf_tpu_torch.cli train`` on the bigvocab config at
+   300,000 x 100,000 (precompute off, sparse ``auto``, one epoch,
+   ``validate``, a checkpoint every 3 dispatches), the training kernels
+   counted through it; a ``Trainer`` resumes its first mid-epoch
+   checkpoint and ends the epoch in the bits of the CLI's last
+   checkpoint, generator included.
 
     python3 chip_smoke.py --gate   # builds the kernels, then only the gate
 
 runs every recipe (``indep40``, ``indep_seq``, ``joint`` at 24 epochs)
 at its reference seed count and holds each mean within
-3 sqrt(sd_ref^2/N_ref + sd_port^2/N_port) of the reference's.
+3 sqrt(sd_ref^2/N_ref + sd_port^2/N_port) of the reference's, then the
+``bigvocab`` recipe; ``--gate=bigvocab`` runs that recipe alone: the
+bigvocab config at 9M x 3M (the log must hold the reference's
+31,768,738 interactions) through the CLI for six epochs, each epoch's
+hr@10 printed beside the reference's, the best within 0.02 of its 0.7961
+(give the chip call ``--timeout 1800``).
 
 Without a card, or run alone in a directory without the package, it
 prints why on standard output and standard error and exits 2.
@@ -4164,6 +4188,514 @@ def phase_api_ml1m(torch, card, gate_run):
     return launches, summary
 
 
+# ------------------------------------------------- big-vocab training (A4)
+
+BIGVOCAB = os.path.join(ROOT, "configs", "advanced_ncf_bigvocab.yaml")
+BIG_LOSS_DISPATCHES = 30   # K=8 sparse steps each, the loss must fall
+BIG_RUN_STEPS = 16         # two runs from one state end in equal bits
+BIG_TIMED = (5, 3)         # windows x dispatches of the host-clock timing
+BIG_ACTIVE_USERS = 400_000  # the users of the seeded batches
+# one sparse step against one dense rowwise-Adagrad step from the same
+# state: the two sum a row's duplicate occurrences in another order (f32)
+# and take the clip's norm over other sums, so each leaf's change agrees
+# within this share of its largest change, the accumulators within it
+BIG_STEP_TOL = 1e-3
+# phase 17: the CLI on a precompute-off log small enough for the default
+# run (entities 400,000 > 4 x 16,384 x 5 = 327,680)
+BIG_CLI = ["data.synthetic_users=300000", "data.synthetic_items=100000",
+           "train.num_epochs=1", "train.checkpoint_every_dispatches=3",
+           "train.keep_checkpoints=100"]
+# the gate's bigvocab recipe: the reference's 9M x 3M run with rowwise
+# Adagrad and sparse row updates (BENCH_r05.json:57-67; its epochs'
+# hr@10 in results/bigvocab_metrics_sparse.jsonl).  N is 1 on each side,
+# so the band is stated: the 250k-user sample alone carries ~0.002, the
+# ML-1M joint recipe's sd is 0.011.
+BIG_GATE = {"overrides": ["data.synthetic_users=9000000",
+                          "data.synthetic_items=3000000",
+                          "train.num_epochs=6", "train.keep_checkpoints=1"],
+            "interactions": 31_768_738,
+            "reference": [0.572476, 0.6128, 0.67834, 0.731456, 0.771136,
+                          0.796128],
+            "band": 0.02}
+
+
+def _big_setup(torch):
+    """The bigvocab config at full width (12M x 4M, batch 16,384, bf16,
+    K 8) with seeded weights, its step's constants and seeded batches:
+    users uniform over an active pool of ``BIG_ACTIVE_USERS`` ids spread
+    over the 12M (so a user's row is updated more than once in the loss
+    run), positives from a Zipf-like popularity over a seeded order of
+    the items (so a batch repeats popular rows), temporal fields in
+    range; the negatives' CDF is the inverse popularity of the log's
+    expected counts (4M entries).  Returns (cfg, params, consts, draw)
+    where ``draw(n, seed)`` gives ``n`` batches stacked ``[K, B]`` on the
+    card."""
+    import numpy as np
+
+    from ncf_tpu_torch.data import make_sampling_cdf
+    from ncf_tpu_torch.models import advanced_ncf
+    from ncf_tpu_torch.utils.config import Config
+
+    cfg = Config.from_yaml(BIGVOCAB)
+    m, t = cfg.model, cfg.train
+    m.num_users, m.num_items = cfg.data.synthetic_users, cfg.data.synthetic_items
+    m.num_departments, m.num_categories = 9, 30
+    U, I, B, K = m.num_users, m.num_items, t.batch_size, t.steps_per_dispatch
+    rng = np.random.default_rng(13)
+    dept = rng.integers(0, 9, I).astype(np.int32)
+    cat = rng.integers(0, 30, I).astype(np.int32)
+    pop = 1.0 / np.arange(1, I + 1, dtype=np.float64) ** 0.8
+    rng.shuffle(pop)
+    pop /= pop.sum()
+    pos_cdf = np.cumsum(pop)
+    active = rng.choice(U, BIG_ACTIVE_USERS, replace=False)
+    cdf = make_sampling_cdf(1.0 / (pop * BIG_GATE["interactions"] + 1.0),
+                            device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = advanced_ncf.init(gen, m)
+
+    def draw(n, seed):
+        r = np.random.default_rng(seed)
+        shape = (n, K, B)
+        cols = {"user_ids": active[r.integers(0, len(active), shape)],
+                "item_ids": np.minimum(np.searchsorted(
+                    pos_cdf, r.random(shape), side="right"), I - 1),
+                "hour": r.integers(0, 24, shape),
+                "day": r.integers(0, 7, shape),
+                "month": r.integers(0, 12, shape),
+                "day_of_year": r.integers(0, 365, shape)}
+        cols = {k: torch.from_numpy(v.astype(np.int32)).cuda()
+                for k, v in cols.items()}
+        return [{k: v[i] for k, v in cols.items()} for i in range(n)]
+
+    return cfg, params, (cdf, dept, cat), draw
+
+
+def _max_change(torch, new, old):
+    return float((new.float() - old.float()).abs().max())
+
+
+def _untouched_equal(torch, new, old, ids, what):
+    """Rows no id touches keep their bits; only touched rows change."""
+    same = (new.view(torch.int32) == old.view(torch.int32)).all(1)
+    touched = torch.zeros(new.shape[0], dtype=torch.bool, device=new.device)
+    touched[ids.reshape(-1).long()] = True
+    check(bool(same[~touched].all()), f"bigvocab step: {what}: "
+          f"{int((~same[~touched]).sum())} untouched rows changed")
+    check(not bool((~same & ~touched).any()), f"bigvocab step: {what}")
+    return int(touched.sum()), int((~same).sum())
+
+
+def _big_sparse_vs_dense(torch, cfg, params, consts, batch):
+    """One sparse step and one dense rowwise-Adagrad step from the same
+    state, the same negatives, dropout 0 and ewd 0."""
+    import dataclasses
+
+    from ncf_tpu_torch.convert import tree_leaves
+    from ncf_tpu_torch.data import sample_negatives
+    from ncf_tpu_torch.models import get_model
+    from ncf_tpu_torch.train import (init_sparse_opt_state, make_optimizer,
+                                     make_schedule, make_sparse_train_step,
+                                     make_train_step)
+    from ncf_tpu_torch.train.checkpoint import _leaves_with_path
+
+    model = get_model("advanced_ncf")
+    scfg = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, dropout=0.0), train=dataclasses.replace(
+        cfg.train, embedding_weight_decay=0.0))
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    negs = sample_negatives(gen, batch["item_ids"], scfg.model.num_items,
+                            scfg.model.negative_samples, cdf=consts[0])
+    start = _clone_tree(torch, params)
+    dense_opt = make_optimizer(dataclasses.replace(
+        scfg.train, gradient_clip_norm=0.0), 1000)
+    state = init_sparse_opt_state(dense_opt, params)
+    step = make_sparse_train_step(model, scfg, dense_opt,
+                                  make_schedule(scfg.train, 1000), *consts)
+    params, state, _, m_s = step(params, state, gen, batch, negs)
+    torch.cuda.synchronize()
+    items = torch.cat([batch["item_ids"][:, None], negs], 1)
+    rows = {}
+    for k, ids in (("user_emb", batch["user_ids"]), ("item_emb", items)):
+        rows[k] = _untouched_equal(torch, params[k], start[k], ids, k)
+    change = {p: _max_change(torch, a, b) for (p, a), b in zip(
+        _leaves_with_path(params), tree_leaves(start))}
+    opt = make_optimizer(scfg.train, 1000)
+    dstate = opt.init(start)
+    dstep = make_train_step(model, scfg, opt, *consts)
+    start, dstate, _, m_d = dstep(start, dstate, gen, batch, negs)
+    torch.cuda.synchronize()
+    worst = 0.0
+    for (p, a), b in zip(_leaves_with_path(params), tree_leaves(start)):
+        gap = _max_change(torch, a, b)
+        share = gap / change[p] if change[p] else (0.0 if gap == 0 else 1.0)
+        check(share <= BIG_STEP_TOL, f"bigvocab step: {p}: sparse and dense "
+              f"differ by {gap!r}, {share!r} of the step's largest change "
+              f"{change[p]!r}")
+        worst = max(worst, share)
+    for acc, table in (("user_acc", "user_emb"), ("item_acc", "item_emb")):
+        want = dstate["embedding"]["sum_sq"][table]
+        gap = _max_change(torch, state[acc], want)
+        check(gap <= BIG_STEP_TOL * float(want.abs().max()),
+              f"bigvocab step: {acc}: {gap!r} from the dense path's")
+    check(abs(float(m_s["loss"]) - float(m_d["loss"]))
+          <= 1e-6 * abs(float(m_d["loss"])), "bigvocab step: the losses")
+    del start, dstate, state
+    torch.cuda.empty_cache()
+    return {"touched_rows": {k: v[0] for k, v in rows.items()},
+            "changed_rows": {k: v[1] for k, v in rows.items()},
+            "worst_share_of_change": worst, "loss": float(m_s["loss"])}
+
+
+def _big_timed(torch, one, steps_a_call, B, what, card):
+    """Host ms a step (median of BIG_TIMED windows), CUDA-event ms, a
+    profiler window of one call, examples/s and peak memory."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    one()
+    windows = []
+    n_win, calls = BIG_TIMED
+    for _ in range(n_win):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            one()
+        torch.cuda.synchronize()
+        windows.append((time.perf_counter() - t0) * 1e3
+                       / (calls * steps_a_call))
+    host = statistics.median(windows)
+    out = {"what": what, "host_ms_per_step": host, "windows": windows,
+           "cuda_event_ms_per_step": cuda_ms(one, 2, warmup=0)
+           / steps_a_call,
+           "examples_per_s": B / (host / 1e3),
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    prof = device_profile(one, 1, top=8)
+    if prof is not None:
+        out["device_ms_per_step"] = prof["device_ms_per_call"] / steps_a_call
+        out["busy_share"] = prof["busy_share"]
+        out["device_ops_per_step"] = (prof["device_ops_per_call"]
+                                      / steps_a_call)
+        out["top_device_ms_per_step"] = {
+            k: v / steps_a_call for k, v in
+            prof["kernels_ms_per_call"].items()}
+        log("profile_json: " + json.dumps({"what": f"bigvocab {what}",
+                                           **prof}))
+    log(f"bigvocab timing[{what}]: {host!r} ms a step (host clock, median "
+        f"of {n_win} windows: {windows}), device "
+        f"{out.get('device_ms_per_step')!r} ms, busy "
+        f"{out.get('busy_share')!r}, {out['examples_per_s']!r} examples/s, "
+        f"peak {out['peak_memory_gb']!r} GB; {card}")
+    return out
+
+
+def _b1_iid_at(torch, cdf, pos, NEG, ml1m_row):
+    """B1's iid draw (two rounds, the positives) over the 4M-entry CDF:
+    equal to its plain version, and timed beside the ML-1M draw."""
+    from ncf_tpu_torch.ops import sampler
+
+    dev = torch.device("cuda")
+    I, B = cdf.shape[0], pos.shape[0]
+    gen = torch.Generator(device=dev).manual_seed(17)
+    u = torch.rand((2, B * NEG), generator=gen, device=dev)
+    pos_bn = pos[:, None].expand(B, NEG).reshape(-1)
+    got = sampler.tree_sample_negatives(u, pos, cdf, I).reshape(-1)
+    want = sampler.tree_sample_ref(u, pos_bn, cdf, I)
+    check(bool(sampler.ordered_for(u, cdf).all()), "B1 at 4M: the CDF")
+    check(torch.equal(got, want), f"B1 at 4M: kernel != plain version in "
+          f"{int((got != want).sum())} slots")
+
+    def lib():
+        d = torch.searchsorted(cdf, u, right=True).clamp_(max=I - 1)
+        return torch.where(d[0] != pos_bn, d[0], d[1])
+
+    check(torch.equal(lib(), want), "B1 at 4M: searchsorted != plain")
+    call = functools.partial(sampler.tree_sample_negatives, u, pos, cdf, I)
+    nbytes = u.numel() * 4 + B * 4 + I * 4 + B * NEG * 4
+    bound, by = _bound(nbytes, u.numel() * (I.bit_length() + 1),
+                       PEAK_FLOP_S["float32"])
+    row = {"kernel": "tree_sample_negatives", "shape": f"iid, {I} items",
+           "ms": cuda_ms(call, 50), **_device_fields(call, lib),
+           # the plain version takes seconds at 4M entries: one call
+           "plain_ms": cuda_ms(lambda: sampler.tree_sample_ref(
+               u, pos_bn, cdf, I), 1, warmup=0),
+           "library_ms": cuda_ms(lib, 50), "bound_ms": bound,
+           "bound_by": by,
+           "ml1m_iid_ms": (ml1m_row or {}).get("ms"),
+           "ml1m_iid_device_ms": (ml1m_row or {}).get("device_ms")}
+    log(f"timing: B1 iid over {I} items: kernel {row['ms']!r} ms (device "
+        f"{row['device_ms']!r}), plain {row['plain_ms']!r}, searchsorted "
+        f"{row['library_ms']!r} (device {row.get('library_device_ms')!r}), "
+        f"bound {bound!r} ({by}); at ML-1M's 3,706 items "
+        f"{row['ml1m_iid_ms']!r} ms (device {row['ml1m_iid_device_ms']!r})")
+    return row
+
+
+def phase_bigvocab_step(torch, card, ml1m_iid_row=None):
+    """Phase 16: the sparse table update at the shipped bigvocab config's
+    full width on seeded batches.  Returns (launches of the training
+    kernels in the loss run, summary)."""
+    import dataclasses
+
+    from ncf_tpu_torch.models import advanced_ncf, get_model
+    from ncf_tpu_torch.ops import embedding
+    from ncf_tpu_torch.train import (init_sparse_opt_state, make_optimizer,
+                                     make_schedule,
+                                     make_sparse_multi_train_step,
+                                     make_train_step)
+
+    embedding.set_scatter_impl("fast")
+    t0 = time.perf_counter()
+    cfg, params, consts, draw = _big_setup(torch)
+    torch.cuda.synchronize()
+    m, t = cfg.model, cfg.train
+    K, B = t.steps_per_dispatch, t.batch_size
+    check(K == 8 and t.embedding_optimizer == "rowwise_adagrad",
+          "bigvocab: the shipped config is not K 8 rowwise Adagrad")
+    log(f"bigvocab: {m.num_users}x{m.num_items} params, batch {B}, K {K}, "
+        f"{m.compute_dtype}, set up in {time.perf_counter() - t0:.1f} s")
+    batches = draw(BIG_LOSS_DISPATCHES, 1)
+    summary = {"step_vs_dense": _big_sparse_vs_dense(
+        torch, cfg, params, consts, {k: v[0] for k, v in
+                                     batches[0].items()})}
+    log(f"bigvocab: one sparse step against one dense rowwise step: "
+        f"{json.dumps(summary['step_vs_dense'])}")
+
+    model = get_model("advanced_ncf")
+    dense_opt = make_optimizer(dataclasses.replace(
+        t, gradient_clip_norm=0.0), 1000)
+    multi = make_sparse_multi_train_step(
+        model, cfg, dense_opt, make_schedule(t, 1000), *consts)
+    state = init_sparse_opt_state(dense_opt, params)
+    # two runs of BIG_RUN_STEPS from one state end in equal bits
+    base, base_state = _clone_tree(torch, params), _clone_tree(torch, state)
+    ends = []
+    for run in range(2):
+        p, s = ((params, state) if run == 0 else (base, base_state))
+        gen = torch.Generator(device="cuda").manual_seed(11)
+        for i in range(BIG_RUN_STEPS // K):
+            p, s, gen, _ = multi(p, s, gen, batches[i])
+        torch.cuda.synchronize()
+        ends.append((p, s))
+    n = _trees_equal(torch, ends[0][0], ends[1][0], "bigvocab: two runs")
+    n += _trees_equal(torch, ends[0][1], ends[1][1], "bigvocab: two runs' "
+                      "state")
+    del base, base_state, ends, p, s
+    torch.cuda.empty_cache()
+    log(f"bigvocab: two runs of {BIG_RUN_STEPS} sparse steps end in equal "
+        f"bits ({n} leaves)")
+
+    # the loss run starts from fresh seeded weights (an untrained model's
+    # loss is ln 2 a slot)
+    del params, state
+    torch.cuda.empty_cache()
+    params = advanced_ncf.init(torch.Generator(device="cuda").manual_seed(1),
+                               m)
+    state = init_sparse_opt_state(dense_opt, params)
+    counters = _launch_counters()
+    for c in counters.values():
+        c.reset()
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    losses = []
+    for b in batches:
+        params, state, gen, mt = multi(params, state, gen, b)
+        losses.append(mt["loss"])
+    launches = {k: c.value for k, c in counters.items()}
+    steps = BIG_LOSS_DISPATCHES * K
+    for k, c in launches.items():
+        check(c == PER_STEP[k] * steps, f"bigvocab: {k} launched {c} times "
+              f"in {steps} sparse steps, want {PER_STEP[k]} a step")
+    losses = torch.stack(losses).float().cpu()
+    check(bool(torch.isfinite(losses).all()), "bigvocab: non-finite loss")
+    log(f"bigvocab: loss a dispatch {losses.tolist()}")
+    first, last = _loss_fell(losses, "bigvocab sparse")
+    summary.update(loss_first=first, loss_last=last, launches=launches,
+                   losses=losses.tolist())
+    log(f"bigvocab: loss {first!r} -> {last!r} over {BIG_LOSS_DISPATCHES} "
+        f"dispatches of {K}; launches {json.dumps(launches)}")
+
+    box = {"i": 0, "p": params, "s": state, "g": gen}
+
+    def sparse_call():
+        b = batches[box["i"] % len(batches)]
+        box["i"] += 1
+        box["p"], box["s"], box["g"], _ = multi(box["p"], box["s"],
+                                                box["g"], b)
+
+    timing = [_big_timed(torch, sparse_call, K, B, "sparse", card)]
+    params = box["p"]
+    del box, state, multi
+    torch.cuda.empty_cache()
+    opt = make_optimizer(t, 1000)
+    dbox = {"i": 0, "s": opt.init(params), "g": gen}
+    dstep = make_train_step(model, cfg, opt, *consts)
+
+    def dense_call():
+        b = batches[dbox["i"] % len(batches)]
+        dbox["i"] += 1
+        _, dbox["s"], dbox["g"], _ = dstep(params, dbox["s"], dbox["g"],
+                                           {k: v[0] for k, v in b.items()})
+
+    timing.append(_big_timed(torch, dense_call, 1, B, "dense rowwise",
+                             card))
+    del dbox, dstep, opt
+    torch.cuda.empty_cache()
+    summary["timing"] = timing
+    summary["b1_iid"] = _b1_iid_at(torch, consts[0],
+                                   batches[0]["item_ids"][0],
+                                   m.negative_samples, ml1m_iid_row)
+    del params
+    torch.cuda.empty_cache()
+    return launches, summary
+
+
+def _memo_load(cli):
+    """``cli._load_interactions`` made once per data section (the gate
+    and phase 17 build each log once)."""
+    if not getattr(cli._load_interactions, "memoized", False):
+        _memoized_interactions()
+        cli._load_interactions.memoized = True
+    return cli._load_interactions
+
+
+def phase_bigvocab_trainer(torch, card):
+    """Phase 17: ``python -m ncf_tpu_torch.cli train`` on the bigvocab
+    config at a precompute-off size small enough for the default run
+    (sparse auto: K 8, one epoch, ``validate``, mid-epoch checkpoints);
+    then a ``Trainer`` resumes the first mid-epoch checkpoint and ends
+    the epoch in the same bits as the CLI's run.  Returns (launches of
+    the training kernels through the CLI, summary)."""
+    import shutil
+
+    import numpy as np
+
+    from ncf_tpu_torch import cli
+    from ncf_tpu_torch.train import Trainer
+    from ncf_tpu_torch.train import checkpoint as ckpt_lib
+    from ncf_tpu_torch.train.checkpoint import _leaves_with_path
+    from ncf_tpu_torch.utils.config import Config
+
+    d = os.path.join(SMOKE_DIR, "bigvocab_cli")
+    shutil.rmtree(d, ignore_errors=True)
+    ov = BIG_CLI + [f"train.checkpoint_dir={d}",
+                    f"train.metrics_file={os.path.join(d, 'metrics.jsonl')}"]
+    load = _memo_load(cli)
+    cfg = Config.from_yaml(BIGVOCAB)
+    cfg.apply_overrides(ov)
+    t0 = time.perf_counter()
+    inter = load(cfg)
+    data_s = time.perf_counter() - t0
+    counters = _launch_counters()
+    for c in counters.values():
+        c.reset()
+    t0 = time.perf_counter()
+    rc, out = _cli(["train", "--config", BIGVOCAB, "--log-level",
+                    "WARNING"] + ov)
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    launches = {k: c.value for k, c in counters.items()}
+    check(rc == 0, f"bigvocab cli: train exited {rc}")
+    for k, n in launches.items():
+        check(n > 0, f"bigvocab cli: {k} never launched through the CLI")
+    with open(os.path.join(d, "metrics.jsonl")) as f:
+        recs = [json.loads(x) for x in f]
+    val = [r for r in recs if r["kind"] == "val"]
+    check(len(val) == 1, f"bigvocab cli: {len(val)} validations")
+    val = val[0]
+    chance = 10.0 / (1 + cfg.data.num_eval_negatives)
+    check(np.isfinite(val["val_loss"]) and val["hr@10"] > chance,
+          f"bigvocab cli: validate gave {val}")
+    final = ckpt_lib.find_best(d)
+    mids = [p for p, m_ in _mid_epoch(d) if m_["epoch"] == 0]
+    check(final is not None and mids, "bigvocab cli: checkpoints missing")
+    with open(os.path.join(mids[0], "manifest.json")) as f:
+        dispatch = json.load(f)["extra"]["dispatch"]
+    log(f"bigvocab cli: {len(inter)} interactions made in {data_s:.1f} s; "
+        f"train exited 0 in {cli_s!r} s: val_loss {val['val_loss']!r}, "
+        f"hr@10 {val['hr@10']!r}; launches {json.dumps(launches)}; {card}")
+
+    cfg.train.checkpoint_dir = d + "_resumed"
+    tb = Trainer(cfg, inter)
+    check(tb.sparse_tables and cfg.train.steps_per_dispatch == 8,
+          "bigvocab cli: the Trainer is not sparse at K 8")
+    check(tb.resume(mids[0]), "bigvocab cli: resume failed")
+    check(tb.start_epoch == 0 and tb._resume_dispatch == dispatch,
+          "bigvocab cli: resume did not re-enter epoch 0")
+    tb.train_epoch(0)
+    want, manifest = ckpt_lib.restore(final, tb._state())
+    check(tb.global_step == manifest["step"], "bigvocab cli: steps differ")
+    got = {"params": tb.params, "opt_state": tb._named_opt_state()}
+    n = _trees_equal(torch, got, {"params": want["params"],
+                                  "opt_state": want["opt_state"]},
+                     "bigvocab cli: resumed run")
+    check(torch.equal(tb.rng.get_state().cpu(), want["rng"].cpu()),
+          "bigvocab cli: the generators differ")
+    log(f"bigvocab cli: resumed at dispatch {dispatch} of epoch 0 and "
+        f"ended it in the CLI run's bits ({n} leaves, the generator too)")
+    del tb
+    torch.cuda.empty_cache()
+    shutil.rmtree(d, ignore_errors=True)
+    shutil.rmtree(d + "_resumed", ignore_errors=True)
+    return launches, {"interactions": len(inter), "cli_s": cli_s,
+                      "val_loss": val["val_loss"], "hr@10": val["hr@10"],
+                      "resume_dispatch": dispatch, "leaves_equal": n,
+                      "launches": launches,
+                      "n_leaves": len(list(_leaves_with_path(got)))}
+
+
+def phase_gate_bigvocab(torch, card):
+    """The gate's ``bigvocab`` recipe: the shipped config at 9M x 3M
+    through the CLI, six epochs, each epoch's hr@10 beside the
+    reference's; the best must lie within ``BIG_GATE["band"]`` of the
+    reference's best.  Returns (seconds, summary)."""
+    import shutil
+
+    from ncf_tpu_torch import cli
+    from ncf_tpu_torch.utils.config import Config
+
+    t_phase = time.perf_counter()
+    d = os.path.join(SMOKE_DIR, "gate", "bigvocab")
+    shutil.rmtree(d, ignore_errors=True)
+    ov = BIG_GATE["overrides"] + [
+        f"train.checkpoint_dir={d}",
+        f"train.metrics_file={os.path.join(d, 'metrics.jsonl')}"]
+    cfg = Config.from_yaml(BIGVOCAB)
+    cfg.apply_overrides(ov)
+    t0 = time.perf_counter()
+    inter = _memo_load(cli)(cfg)
+    data_s = time.perf_counter() - t0
+    check(len(inter) == BIG_GATE["interactions"],
+          f"gate[bigvocab]: {len(inter)} interactions, the reference's log "
+          f"has {BIG_GATE['interactions']}")
+    log(f"gate[bigvocab]: {inter.num_users}x{inter.num_items}, {len(inter)} "
+        f"interactions made in {data_s:.1f} s")
+    t0 = time.perf_counter()
+    rc, _ = _cli(["train", "--config", BIGVOCAB, "--log-level", "WARNING"]
+                 + ov)
+    train_s = time.perf_counter() - t0
+    check(rc == 0, f"gate[bigvocab]: train exited {rc}")
+    with open(os.path.join(d, "metrics.jsonl")) as f:
+        recs = [json.loads(x) for x in f]
+    val = [r for r in recs if r["kind"] == "val"]
+    curve = [[int(r["epoch"]), r["hr@10"], ref, r["val_loss"]]
+             for r, ref in zip(val, BIG_GATE["reference"])]
+    rates = [r["examples_per_s"] for r in recs if r["kind"] == "train"]
+    for e, hr, ref, vl in curve:
+        log(f"gate[bigvocab]: epoch {e} hr@10 {hr!r} (reference {ref!r}), "
+            f"val_loss {vl!r}")
+    best = max(r["hr@10"] for r in val)
+    gap = best - max(BIG_GATE["reference"])
+    out = {"epochs": curve, "best": best, "reference_best":
+           max(BIG_GATE["reference"]), "gap": gap, "band": BIG_GATE["band"],
+           "train_s": train_s, "data_s": data_s,
+           "examples_per_s_median": statistics.median(rates) if rates else
+           None, "card": card}
+    log("gate_bigvocab_json: " + json.dumps(out))
+    shutil.rmtree(d, ignore_errors=True)
+    check(gap >= -BIG_GATE["band"], f"gate[bigvocab]: best hr@10 {best!r} "
+          f"is {-gap!r} below the reference's {max(BIG_GATE['reference'])!r}")
+    return time.perf_counter() - t_phase, out
+
+
 def main() -> int:
     import torch
 
@@ -4203,9 +4735,13 @@ def main() -> int:
     secs = _kernels.build_all()
     log(f"build: nvcc {' '.join(_kernels.NVCC_FLAGS)} "
         f"{', '.join(s + '.cu' for s in _kernels.SOURCES)} in {secs:.1f} s")
-    if "--gate" in sys.argv[1:]:
-        gate_s, _ = phase_gate(torch, card, full_gate=True)
-        log(f"phase gate {gate_s:.1f} s (every recipe at its N seeds)")
+    gate = [a for a in sys.argv[1:] if a.startswith("--gate")]
+    if gate:
+        if gate[0] != "--gate=bigvocab":
+            gate_s, _ = phase_gate(torch, card, full_gate=True)
+            log(f"phase gate {gate_s:.1f} s (every recipe at its N seeds)")
+        gate_s, _ = phase_gate_bigvocab(torch, card)
+        log(f"phase gate[bigvocab] {gate_s:.1f} s")
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}), flush=True)
@@ -4322,6 +4858,23 @@ def main() -> int:
         f"{json.dumps(ml_launches)}")
     log("api_ml1m_json: " + json.dumps(ml_summary))
     for k, v in list(api_launches.items()) + list(ml_launches.items()):
+        launches[k] = launches.get(k, 0) + v
+
+    t0 = time.perf_counter()
+    big_launches, big_summary = phase_bigvocab_step(
+        torch, card, next((r for r in train_rows
+                           if r["kernel"] == "tree_sample_negatives"
+                           and r["shape"] == "iid"), None))
+    log(f"phase bigvocab_step {time.perf_counter() - t0:.1f} s, peak "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB since the last "
+        f"reset")
+    log("bigvocab_step_json: " + json.dumps(big_summary))
+
+    t0 = time.perf_counter()
+    cli_launches, cli_summary = phase_bigvocab_trainer(torch, card)
+    log(f"phase bigvocab_trainer {time.perf_counter() - t0:.1f} s")
+    log("bigvocab_trainer_json: " + json.dumps(cli_summary))
+    for k, v in list(big_launches.items()) + list(cli_launches.items()):
         launches[k] = launches.get(k, 0) + v
 
     # one timed shape per kernel: the serving bucket for B5, the pooled

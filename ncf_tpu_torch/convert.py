@@ -8,7 +8,13 @@ its side; this module takes it from there.
 The Adam state moves the same way: ``adam_state_from_numpy`` reads the
 ``count``, ``mu`` and ``nu`` of optax's ``ScaleByAdamState`` out of an
 optimizer state (mapped to numpy), and ``adam_state_to_numpy`` writes the
-port's back into such a state, schedule counts included.
+port's back into such a state, schedule counts included.  Any other state
+of the reference's optimizers (the ``multi_transform`` chain of the table
+optimizers, the sparse path's dict) goes through its leaf names:
+``named_tree`` names an optax state's leaves as the JAX package's
+checkpoints do, ``opt_state_from_numpy`` reads the port's state from it
+and ``opt_state_to_numpy`` writes the port's into an optax template
+(``train/checkpoint.py::named_opt_state`` holds the naming).
 """
 
 from __future__ import annotations
@@ -136,3 +142,61 @@ def adam_state_to_numpy(state: dict, template: Any) -> Any:
         return node
 
     return fill(template)
+
+
+def named_tree(state: Any) -> Any:
+    """An optax state (numpy leaves; NamedTuples, tuples, dicts) as nested
+    dicts keyed as the JAX package's checkpoint paths (field names, list
+    indices as strings, dict keys), sub-trees without leaves dropped."""
+    if hasattr(state, "_fields"):
+        items = [(f, getattr(state, f)) for f in state._fields]
+    elif isinstance(state, dict):
+        items = list(state.items())
+    elif isinstance(state, (list, tuple)):
+        items = [(str(i), v) for i, v in enumerate(state)]
+    else:
+        return state
+    out = {}
+    for k, v in items:
+        sub = named_tree(v)
+        if not (isinstance(sub, dict) and not sub):
+            out[str(k)] = sub
+    return out
+
+
+def opt_state_from_numpy(opt_state: Any, device: DeviceLike = None) -> Any:
+    """The port's state of any of the reference's optimizers (an optax
+    state or the sparse path's dict, numpy leaves) on ``device``."""
+    from ncf_tpu_torch.train.checkpoint import opt_state_from_named
+
+    dev = resolve_device(device)
+    return opt_state_from_named(
+        tree_map(lambda a: array_to_tensor(a, dev), named_tree(opt_state)))
+
+
+def opt_state_to_numpy(state: Any, template: Any, cfg) -> Any:
+    """The port's optimizer state written into ``template``, the state of
+    the reference's optimizer for the train config ``cfg`` (numpy or JAX
+    leaves): every leaf replaced by the port's of the same name, as
+    numpy.  The sparse path's dict keeps its dense optimizer unclipped,
+    as the reference's does."""
+    from ncf_tpu_torch.train.checkpoint import (_leaves_with_path,
+                                                named_opt_state)
+
+    named = dict(_leaves_with_path(named_opt_state(
+        state, cfg.gradient_clip_norm, cfg.weight_decay,
+        cfg.embedding_weight_decay, cfg.embedding_learning_rate)))
+
+    def fill(node, prefix):
+        def sub(k):
+            return f"{prefix}.{k}" if prefix else str(k)
+        if hasattr(node, "_fields"):
+            return node._replace(**{f: fill(getattr(node, f), sub(f))
+                                    for f in node._fields})
+        if isinstance(node, dict):
+            return {k: fill(v, sub(k)) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(fill(v, sub(i)) for i, v in enumerate(node))
+        return _to_numpy(named[prefix]).astype(np.asarray(node).dtype)
+
+    return fill(template, "")

@@ -7,7 +7,8 @@ linear map ``Wo(Wv x + bv) + bo``, and the vocabulary-level precompute
 when the vocabulary is smaller than the batch's occurrences.
 
 What is ported: ``apply`` in eval and training mode, in both
-``candidate_attention`` modes and both vocab branches, with the sequence
+``candidate_attention`` modes and both vocab branches (the precompute-off
+one with the sparse update's injected rows), with the sequence
 path (``use_sequence``: the user query attends the user's recent items
 through ``sequence_attn``), ``score_candidates``, ``score_items_with_hour``
 and the embedding exports.  Training dropout sits where the reference
@@ -207,12 +208,21 @@ def apply(
     deterministic: bool = True,
     rng=None,
     history: Optional[torch.Tensor] = None,
+    user_rows: Optional[torch.Tensor] = None,     # [B, 2d] gathered rows
+    item_rows: Optional[torch.Tensor] = None,     # [B, S, 2d]
+    history_rows: Optional[torch.Tensor] = None,  # [B, H, 2d]
 ) -> torch.Tensor:
     """Forward pass -> logits [B, S].  Training mode
     (``deterministic=False``) draws its dropout masks from ``rng``, a
     ``torch.Generator`` on the ids' device.  ``history`` (int [B, H],
     padded with -1) is the user's recent items when ``cfg.use_sequence``;
-    without it the sequence slot of the tower input is zero."""
+    without it the sequence slot of the tower input is zero.
+
+    ``user_rows``, ``item_rows`` and ``history_rows`` are fused-table rows
+    gathered by the caller (the sparse table update of ``train/step.py``):
+    they stand in for the lookups of ``user_ids``, ``item_ids`` and
+    ``history``, so the gradient flows to them and no ``[V, 2d]`` table
+    gradient is formed.  Only the precompute-off regime takes them."""
     B, S = item_ids.shape
     dtype = torch_dtype(cfg.compute_dtype)
     use_cat = (cfg.use_category and item_dept is not None
@@ -220,6 +230,12 @@ def apply(
     vocab = _use_vocab_precompute(cfg, B * S)
 
     dmf = cfg.mf_dim
+    if (user_rows is not None or item_rows is not None
+            or history_rows is not None):
+        # the precompute branch would ignore injected rows
+        assert not vocab, (
+            "user_rows/item_rows/history_rows require the precompute-OFF "
+            "regime (num_items + num_users > 4*B*S)")
     if vocab:
         user_t = torch.cat([
             layer_norm(params["mf_norm"], params["user_emb"][:, :dmf]),
@@ -242,8 +258,10 @@ def apply(
         user_mf, user_mlp = user_full[:, :dmf], user_full[:, dmf:]
         item_mf, item_mlp = item_full[..., :dmf], item_full[..., dmf:]
     else:
-        user_full = embedding_lookup(params["user_emb"], user_ids)
-        item_full = embedding_lookup(params["item_emb"], item_ids)
+        user_full = (user_rows if user_rows is not None
+                     else embedding_lookup(params["user_emb"], user_ids))
+        item_full = (item_rows if item_rows is not None
+                     else embedding_lookup(params["item_emb"], item_ids))
         user_mf = layer_norm(params["mf_norm"], user_full[:, :dmf])
         user_mlp = layer_norm(params["mlp_norm"], user_full[:, dmf:])
         item_mf = layer_norm(params["mf_norm"], item_full[..., :dmf])
@@ -276,9 +294,9 @@ def apply(
                     kv[..., cfg.mlp_dim:], cfg.num_heads, cfg.dropout, rng,
                     deterministic, dtype, key_mask=hmask)
             else:
-                seq_emb = layer_norm(
-                    params["mlp_norm"],
-                    embedding_lookup(params["item_emb"], hsafe)[..., dmf:])
+                seq_src = (history_rows if history_rows is not None
+                           else embedding_lookup(params["item_emb"], hsafe))
+                seq_emb = layer_norm(params["mlp_norm"], seq_src[..., dmf:])
                 if use_cat:
                     ids = hsafe.long()
                     seq_hier = _hierarchy_table(

@@ -10,7 +10,8 @@ config, ``extra``).  Checkpoints move between the packages both ways;
 every leaf to the host before it returns, so the next in-place step
 cannot reach a leaf being written.  The optimizer state is written under
 optax's names (``named_opt_state``), so that the JAX package's ``Trainer``
-reads the port's Adam moments and the port reads the reference's.  The
+reads the port's Adam moments, table-optimizer states and sparse-path
+accumulators, and the port reads the reference's.  The
 orbax backend is not supported: it is a JAX library.
 """
 
@@ -64,24 +65,70 @@ def _leaf_filename(path_s: str) -> str:
     return path_s.replace("/", "_") + ".npy"
 
 
+def _nest(inner: Dict[str, Any], ewd: float, elr: float) -> Dict[str, Any]:
+    """Where the table rule's state sits inside optax's chain of table
+    transforms: ``chain(chain(decay, rule), scale)`` puts it at ``0.1``,
+    ``chain(decay, rule)`` at ``1``, ``chain(rule, scale)`` at ``0``."""
+    if ewd and elr:
+        return {"0": {"1": inner}}
+    if ewd:
+        return {"1": inner}
+    if elr:
+        return {"0": inner}
+    return inner
+
+
 def named_opt_state(state: Dict[str, Any], clip_norm: float,
-                    weight_decay: float) -> Dict[str, Any]:
-    """The port's Adam state under the leaf names of the reference's
+                    weight_decay: float, embedding_weight_decay: float = 0.0,
+                    embedding_learning_rate: float = 0.0) -> Dict[str, Any]:
+    """The port's optimizer state under the leaf names of the reference's
     optax chain (``ncf_tpu/train/optim.py::make_optimizer``): the clip and
-    the L2 decay hold no leaves, Adam's state sits at index ``[clip > 0] +
-    [decay > 0]`` and the schedule's count one after it."""
+    the L2 decay hold no leaves, the Adam or ``multi_transform`` state
+    sits at index ``[clip > 0] + [decay > 0]`` and the schedule's count
+    one after it.  A ``multi_transform`` state holds Adam's under
+    ``inner_states.dense.inner_state`` and the table rule's under
+    ``inner_states.embedding.inner_state`` (nested as ``_nest`` says).
+    The sparse path's state (``train/step.py::init_sparse_opt_state``)
+    keeps its keys, its dense optimizer's state named the same way
+    (that optimizer never clips)."""
+    if "user_acc" in state:
+        return {"dense": named_opt_state(
+                    state["dense"], 0.0, weight_decay,
+                    embedding_weight_decay, embedding_learning_rate),
+                "user_acc": state["user_acc"], "item_acc": state["item_acc"],
+                "count": state["count"]}
     a = int((clip_norm or 0) > 0) + int((weight_decay or 0) > 0)
-    return {str(a): {"count": state["count"], "mu": state["mu"],
-                     "nu": state["nu"]},
-            str(a + 1): {"count": state["count"]}}
+    count = state["count"]
+    if "dense" not in state:                              # Adam
+        inner = {"count": count, "mu": state["mu"], "nu": state["nu"]}
+    else:
+        emb = dict(state["embedding"])
+        if "sum_sq" not in emb:                # the Adam-like table rules
+            emb = {"count": count, **emb}
+        inner = {"inner_states": {
+            "dense": {"inner_state": {"count": count, **state["dense"]}},
+            "embedding": {"inner_state": _nest(
+                emb, embedding_weight_decay, embedding_learning_rate)}}}
+    return {str(a): inner, str(a + 1): {"count": count}}
 
 
 def opt_state_from_named(named: Dict[str, Any]) -> Dict[str, Any]:
-    """Inverse of ``named_opt_state``: the Adam entry, whose count the
-    port keeps (optax advances both counts together)."""
-    a = min(named, key=int)
-    adam = named[a]
-    return {"count": adam["count"], "mu": adam["mu"], "nu": adam["nu"]}
+    """Inverse of ``named_opt_state``.  The port keeps one count (optax
+    advances all of a chain's counts together): Adam's."""
+    if "user_acc" in named:
+        return {"dense": opt_state_from_named(named["dense"]),
+                "user_acc": named["user_acc"], "item_acc": named["item_acc"],
+                "count": named["count"]}
+    node = named[min(named, key=int)]
+    if "inner_states" not in node:
+        return {"count": node["count"], "mu": node["mu"], "nu": node["nu"]}
+    dense = node["inner_states"]["dense"]["inner_state"]
+    emb = node["inner_states"]["embedding"]["inner_state"]
+    while emb and set(emb) <= {"0", "1"}:
+        emb = emb["1"] if "1" in emb else emb["0"]
+    return {"count": dense["count"],
+            "dense": {"mu": dense["mu"], "nu": dense["nu"]},
+            "embedding": {k: v for k, v in emb.items() if k != "count"}}
 
 
 def wait_for_pending() -> None:
@@ -143,7 +190,12 @@ def _load_leaf(ckpt_dir: str, meta: Dict[str, Any]) -> np.ndarray:
             sl = tuple(slice(a, b) for a, b in sh["index"])
             arr[sl] = np.load(os.path.join(ckpt_dir, sh["file"]))
         return arr
-    return np.load(os.path.join(ckpt_dir, meta["file"]))
+    arr = np.load(os.path.join(ckpt_dir, meta["file"]))
+    if arr.dtype.kind == "V" and arr.dtype.itemsize == 2:
+        # a bf16 leaf of the JAX package (``.npy`` keeps it as 2-byte
+        # voids): its bits are the high half of an f32, widened exactly
+        arr = (arr.view(np.uint16).astype(np.uint32) << 16).view(np.float32)
+    return arr
 
 
 def restore(ckpt_dir: str, template: Any,

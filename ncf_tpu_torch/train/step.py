@@ -20,8 +20,15 @@ or else from the ``user_history`` table with the positive masked out,
 as the reference does (``step.py:92-107``).  PyTorch runs eagerly, so there is no jit or donation: the
 params and the Adam moments are updated in place and returned.
 
-The sparse-table builders (``step.py:199-458``) belong to the big-vocab
-slice and are not here.
+The sparse-table builders (``step.py:199-458``, one device): under
+``rowwise_adagrad`` tables in the big-vocabulary regime
+(``sparse_mode_available``) the step gathers the batch's table rows
+outside the loss, injects them into ``apply`` (autograd then reaches the
+rows and the dense params, never the tables), combines the duplicate
+rows, clips over the dense gradients and the combined totals together,
+and updates the touched rows with rowwise Adagrad (``train/sparse.py``)
+and the dense params with the dense optimizer.  The history's rows are
+more touched rows of the item table, as in the reference.
 """
 
 from __future__ import annotations
@@ -37,6 +44,8 @@ from ncf_tpu_torch.data.sampler import (sample_negatives,
                                         sample_negatives_stratified)
 from ncf_tpu_torch.evals.metrics import accuracy_stats
 from ncf_tpu_torch.train.optim import Adam
+from ncf_tpu_torch.train.sparse import (combine_duplicate_rows,
+                                        sparse_rowwise_adagrad_apply)
 from ncf_tpu_torch.utils.config import Config
 from ncf_tpu_torch.utils.device import DeviceLike, resolve_device
 
@@ -90,7 +99,10 @@ def _targets(B: int, S: int, dev) -> torch.Tensor:
 def _make_loss_fn(model, cfg: Config, training: bool = True):
     """The step's loss; validation (``training=False``) draws iid
     negatives and runs ``apply`` without dropout, as the reference's
-    ``make_eval_step`` does."""
+    ``make_eval_step`` does.  ``loss_fn.inputs`` draws a batch's
+    candidates, temporal fields and history on its own; the sparse step
+    takes them first and hands them back as ``drawn`` with its injected
+    rows."""
     mcfg = cfg.model
     S = 1 + mcfg.negative_samples
     loss_impl = make_loss(cfg.train.loss)
@@ -99,7 +111,7 @@ def _make_loss_fn(model, cfg: Config, training: bool = True):
               if training and cfg.train.negative_sampling == "stratified"
               else sample_negatives)
 
-    def loss_fn(params, batch, gen, consts, negatives=None):
+    def inputs(batch, gen, consts, negatives=None):
         pos = batch["item_ids"]
         if negatives is None:
             negs = sample(gen, pos, mcfg.num_items, mcfg.negative_samples,
@@ -119,29 +131,45 @@ def _make_loss_fn(model, cfg: Config, training: bool = True):
             history = consts["user_history"][batch["user_ids"].long()]
             history = torch.where(history == pos[:, None].to(history.dtype),
                                   torch.full_like(history, -1), history)
+        return items, temporal, history
+
+    def loss_fn(params, batch, gen, consts, negatives=None, drawn=None,
+                **rows):
+        items, temporal, history = drawn or inputs(batch, gen, consts,
+                                                   negatives)
         logits = model.apply(
             params, mcfg, batch["user_ids"], items, temporal,
             consts.get("item_dept"), consts.get("item_cat"),
             candidate_attention=joint, deterministic=not training, rng=gen,
-            history=history)
-        targets = _targets(pos.shape[0], S, pos.device)
+            history=history, **rows)
+        targets = _targets(items.shape[0], S, items.device)
         return loss_impl(logits, targets), logits, targets
 
+    loss_fn.inputs = inputs
     return loss_fn
 
 
-def _grads(loss_fn, params, *args):
+def _track(tree: Any):
+    """(leaves that require grad, the tree rebuilt on them)."""
+    leaves = [p.detach().requires_grad_(True) for p in tree_leaves(tree)]
+    it = iter(leaves)
+    return leaves, tree_map(lambda _: next(it), tree)
+
+
+def _grads(loss_fn, params, *args, rows=None):
     """(loss, logits, targets) and the gradient of every param leaf, in
     ``tree_leaves`` order (zeros where the loss does not reach a leaf,
-    as ``jax.grad`` gives)."""
-    leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
-    it = iter(leaves)
-    tracked = tree_map(lambda _: next(it), params)
+    as ``jax.grad`` gives), then of each of ``rows`` (``apply``'s
+    injected rows, by name; ``params`` then holds no table they stand
+    in for)."""
+    leaves, tracked = _track(params)
+    rows = {k: r.detach().requires_grad_(True) for k, r in (rows or {}).items()}
     with torch.enable_grad():
-        loss, logits, targets = loss_fn(tracked, *args)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        loss, logits, targets = loss_fn(tracked, *args, **rows)
+        grads = torch.autograd.grad(loss, leaves + list(rows.values()),
+                                    allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g
-             for p, g in zip(leaves, grads)]
+             for p, g in zip(leaves, grads)] + list(grads[len(leaves):])
     return loss.detach(), logits.detach(), targets, grads
 
 
@@ -180,6 +208,25 @@ def make_train_step(
     return train_step
 
 
+def _multi(step: Callable) -> Callable:
+    """K calls of ``step`` per call, each entry of ``batches`` stacked
+    ``[K, B]`` (``negatives``, if given, ``[K, B, NEG]``); the metrics
+    are the means over the K steps."""
+    def multi_train_step(params, opt_state, gen, batches, negatives=None):
+        K = len(next(iter(batches.values())))
+        per = []
+        for i in range(K):
+            negs = None if negatives is None else negatives[i]
+            params, opt_state, gen, m = step(
+                params, opt_state, gen, {k: v[i] for k, v in batches.items()},
+                negs)
+            per.append(m)
+        metrics = {k: torch.stack([m[k] for m in per]).mean() for k in per[0]}
+        return params, opt_state, gen, metrics
+
+    return multi_train_step
+
+
 def make_multi_train_step(
     model,
     cfg: Config,
@@ -194,22 +241,152 @@ def make_multi_train_step(
     batches, negatives=None)`` where every entry of ``batches`` is stacked
     ``[K, B]`` (and ``negatives``, if given, ``[K, B, NEG]``).  Returns
     the mean metrics over the K steps."""
-    step = make_train_step(model, cfg, optimizer, neg_cdf, item_dept,
-                           item_cat, user_history, device)
+    return _multi(make_train_step(model, cfg, optimizer, neg_cdf, item_dept,
+                                  item_cat, user_history, device))
 
-    def multi_train_step(params, opt_state, gen, batches, negatives=None):
-        K = len(next(iter(batches.values())))
-        per = []
-        for i in range(K):
-            negs = None if negatives is None else negatives[i]
-            params, opt_state, gen, m = step(
-                params, opt_state, gen, {k: v[i] for k, v in batches.items()},
-                negs)
-            per.append(m)
-        metrics = {k: torch.stack([m[k] for m in per]).mean() for k in per[0]}
+
+# ------------------------------------------------- the sparse table update
+
+TABLE_KEYS = ("user_emb", "item_emb")
+
+
+def sparse_mode_available(cfg: Config, mesh=None) -> bool:
+    """Whether the sparse table update applies: rowwise-Adagrad tables,
+    AdvancedNCF in the big-vocabulary (precompute-off) regime, and no
+    strictly-causal per-example histories.  The port has no mesh yet
+    (ROADMAP A5): given one, it raises."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "the sparse update over a mesh is not ported yet (ROADMAP A5)")
+    m, t = cfg.model, cfg.train
+    return (t.embedding_optimizer == "rowwise_adagrad"
+            and m.name == "advanced_ncf"
+            and not (m.use_sequence and m.causal_history)
+            and m.num_users + m.num_items
+            > 4 * t.batch_size * (1 + m.negative_samples))
+
+
+def init_sparse_opt_state(dense_optimizer, params) -> Dict[str, Any]:
+    """The sparse path's state: the dense optimizer's over the dense
+    params, a zero f32 accumulator a table row, and the schedule's
+    count."""
+    dense = {k: v for k, v in params.items() if k not in TABLE_KEYS}
+    dev = params["user_emb"].device
+    return {"dense": dense_optimizer.init(dense),
+            "user_acc": torch.zeros(params["user_emb"].shape[0],
+                                    dtype=torch.float32, device=dev),
+            "item_acc": torch.zeros(params["item_emb"].shape[0],
+                                    dtype=torch.float32, device=dev),
+            "count": torch.zeros((), dtype=torch.int32, device=dev)}
+
+
+def _make_sparse_body(model, cfg: Config, dense_optimizer, schedule):
+    """One sparse step (``ncf_tpu/train/step.py::_make_sparse_body``
+    without a mesh).  It draws from ``gen`` in the dense step's order
+    (negatives, then dropout), so the two paths take the same draws."""
+    tcfg = cfg.train
+    loss_fn = _make_loss_fn(model, cfg)
+    clip = tcfg.gradient_clip_norm or 0.0
+    emb_scale = ((tcfg.embedding_learning_rate / tcfg.learning_rate)
+                 if tcfg.embedding_learning_rate else 1.0)
+    ewd = getattr(tcfg, "embedding_weight_decay", 0.0) or 0.0
+    eps = getattr(tcfg, "embedding_adagrad_eps", 1e-8)
+
+    def body(params, opt_state, gen, batch, consts, negatives=None):
+        tables = {k: params[k] for k in TABLE_KEYS}
+        dense = {k: v for k, v in params.items() if k not in TABLE_KEYS}
+        drawn = loss_fn.inputs(batch, gen, consts, negatives)
+        items, _, history = drawn
+        uids = batch["user_ids"]
+        item_ids = items.reshape(-1)
+        rows = {"user_rows": tables["user_emb"][uids.long()],
+                "item_rows": tables["item_emb"][item_ids.long()].reshape(
+                    items.shape + (-1,))}
+        h_ids = None
+        if history is not None:
+            # padded slots alias the example's positive row (touched
+            # anyway) and get exactly-zero gradients
+            h_ids = torch.where(history >= 0, history,
+                                items[:, :1].to(history.dtype)).reshape(-1)
+            rows["history_rows"] = tables["item_emb"][h_ids.long()].reshape(
+                history.shape + (-1,))
+        loss, logits, targets, grads = _grads(
+            lambda d, *a, **r: loss_fn({**d, **tables}, *a, **r), dense,
+            batch, gen, consts, None, drawn, rows=rows)
+        nd = len(grads) - len(rows)
+        g_dense, g_u = grads[:nd], grads[nd]
+        g_i = grads[nd + 1].reshape(-1, grads[nd + 1].shape[-1])
+        item_upd_ids = item_ids
+        if h_ids is not None:
+            g_i = torch.cat([g_i, grads[nd + 2].reshape(-1, g_i.shape[-1])])
+            item_upd_ids = torch.cat([item_ids, h_ids.to(item_ids.dtype)])
+        with torch.no_grad():
+            # optax's schedule is read at the count before the increment
+            lr_t = schedule(opt_state["count"]) * emb_scale
+            # combine first: the clip norm is the dense path's, over
+            # per-row totals
+            u_rep, u_tot = combine_duplicate_rows(
+                uids, g_u, tables["user_emb"].shape[0])
+            i_rep, i_tot = combine_duplicate_rows(
+                item_upd_ids, g_i, tables["item_emb"].shape[0])
+            if clip > 0:
+                sq = [g.to(torch.float32).square().sum()
+                      for g in g_dense + [u_tot, i_tot]]
+                trigger = torch.clamp(clip / torch.stack(sq).sum().sqrt(),
+                                      max=1.0)
+                for g in g_dense:
+                    g.mul_(trigger.to(g.dtype))
+                u_tot = u_tot * trigger
+                i_tot = i_tot * trigger
+            sparse_rowwise_adagrad_apply(
+                tables["user_emb"], opt_state["user_acc"], u_rep, u_tot,
+                lr_t, eps, ewd)
+            sparse_rowwise_adagrad_apply(
+                tables["item_emb"], opt_state["item_acc"], i_rep, i_tot,
+                lr_t, eps, ewd)
+            dense_state = dense_optimizer.update(dense, g_dense,
+                                                 opt_state["dense"])
+            metrics = {"loss": loss, **accuracy_stats(logits, targets)}
+        opt_state = {"dense": dense_state, "user_acc": opt_state["user_acc"],
+                     "item_acc": opt_state["item_acc"],
+                     "count": (opt_state["count"] + 1).to(torch.int32)}
         return params, opt_state, gen, metrics
 
-    return multi_train_step
+    return body
+
+
+def make_sparse_train_step(
+    model, cfg: Config, dense_optimizer, schedule, neg_cdf=None,
+    item_dept=None, item_cat=None, mesh=None, user_history=None,
+    device: DeviceLike = None,
+) -> Callable:
+    """The sparse table update with ``make_train_step``'s contract,
+    ``train_step(params, opt_state, gen, batch, negatives=None)``:
+    ``opt_state`` from ``init_sparse_opt_state``, ``dense_optimizer`` the
+    dense params' optimizer (built without a clip: the step clips the
+    whole set), ``schedule`` the learning rate's.  Tables and
+    accumulators are updated in place, touched rows only."""
+    sparse_mode_available(cfg, mesh)            # raises on a mesh
+    dev = resolve_device(device)
+    body = _make_sparse_body(model, cfg, dense_optimizer, schedule)
+    consts = _consts(dev, neg_cdf, item_dept, item_cat, user_history)
+
+    def train_step(params, opt_state, gen, batch, negatives=None):
+        return body(params, opt_state, gen, _batch_to(batch, dev), consts,
+                    negatives)
+
+    return train_step
+
+
+def make_sparse_multi_train_step(
+    model, cfg: Config, dense_optimizer, schedule, neg_cdf=None,
+    item_dept=None, item_cat=None, mesh=None, user_history=None,
+    device: DeviceLike = None,
+) -> Callable:
+    """K sparse steps per call (``make_multi_train_step``'s contract)."""
+    return _multi(make_sparse_train_step(
+        model, cfg, dense_optimizer, schedule, neg_cdf, item_dept, item_cat,
+        mesh, user_history, device))
 
 
 def make_eval_step(

@@ -16,14 +16,21 @@ comes from its own generator seeded per (seed, epoch): skipping the
 dispatches a mid-epoch checkpoint already took draws nothing, and a
 resumed run ends in the same bits as an uninterrupted one.
 
+Under ``rowwise_adagrad`` tables in the big-vocabulary regime
+(``sparse_table_update: auto`` or ``on``) the step is the sparse table
+update of ``train/step.py``: the tables' touched rows take rowwise
+Adagrad, the dense params the dense optimizer (built without a clip: the
+step clips the whole set), ``steps_per_dispatch: 0`` means 8 and no
+autotune, as in the reference.
+
 Not here yet: the mesh (``mesh=``, ``mesh.enable``; ROADMAP A5), the
-sparse table update and the table optimizers other than Adam (A4), the
 orbax checkpoint backends, and the explicit-exchange registry that only
 a mesh uses.  Each raises at construction.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import itertools
 import logging
 import time
@@ -44,9 +51,12 @@ from ncf_tpu_torch.evals.full_eval import (FullCatalogEvaluator,
 from ncf_tpu_torch.models import get_model
 from ncf_tpu_torch.ops import embedding as embedding_ops
 from ncf_tpu_torch.train import checkpoint as ckpt_lib
-from ncf_tpu_torch.train.optim import make_optimizer
-from ncf_tpu_torch.train.step import (make_eval_step, make_multi_train_step,
-                                      make_train_step)
+from ncf_tpu_torch.train.optim import make_optimizer, make_schedule
+from ncf_tpu_torch.train.step import (init_sparse_opt_state, make_eval_step,
+                                      make_multi_train_step,
+                                      make_sparse_multi_train_step,
+                                      make_sparse_train_step,
+                                      make_train_step, sparse_mode_available)
 from ncf_tpu_torch.utils.config import Config
 from ncf_tpu_torch.utils.device import DeviceLike, resolve_device
 from ncf_tpu_torch.utils.logging import MetricsLogger
@@ -59,17 +69,6 @@ _SCATTER = {"fast": ("fast", "bf16"),
             "xla": ("xla", "split")}
 
 
-def _sparse_mode_available(cfg: Config) -> bool:
-    """Where the reference would take its sparse table update on one
-    device (``ncf_tpu/train/step.py::sparse_mode_available``)."""
-    m, t = cfg.model, cfg.train
-    return (t.embedding_optimizer == "rowwise_adagrad"
-            and m.name == "advanced_ncf"
-            and not (m.use_sequence and m.causal_history)
-            and m.num_users + m.num_items
-            > 4 * t.batch_size * (1 + m.negative_samples))
-
-
 def _check_supported(cfg: Config, mesh, dev: torch.device) -> None:
     """Raise for what the port does not have yet, before any work."""
     enable = cfg.mesh.enable
@@ -80,17 +79,12 @@ def _check_supported(cfg: Config, mesh, dev: torch.device) -> None:
         raise NotImplementedError(
             "training over a mesh is not ported yet (ROADMAP A5); "
             "set mesh.enable=off")
-    mode = cfg.train.sparse_table_update
-    available = _sparse_mode_available(cfg)
-    if mode == "on" and not available:
+    if (cfg.train.sparse_table_update == "on"
+            and not sparse_mode_available(cfg)):
         raise ValueError(
             "sparse_table_update=on requires rowwise_adagrad tables, "
             "advanced_ncf in the big-vocab regime (static-table "
             "history only — causal_history is incompatible)")
-    if mode == "on" or (mode == "auto" and available):
-        raise NotImplementedError(
-            "the sparse table update is not ported yet (ROADMAP A4); "
-            "set train.sparse_table_update=off")
     if cfg.train.checkpoint_backend != "native":
         raise NotImplementedError(
             f"checkpoint_backend={cfg.train.checkpoint_backend!r} is not "
@@ -196,17 +190,43 @@ class Trainer:
         # ---- params / optimizer / steps
         init_gen = torch.Generator(device=dev).manual_seed(cfg.train.seed)
         self.params = self.model.init(init_gen, cfg.model, device=dev)
-        self.optimizer = make_optimizer(cfg.train, len(self.train_iter))
-        self.opt_state = self.optimizer.init(self.params)
+        mode = cfg.train.sparse_table_update
+        self.sparse_tables = mode == "on" or (
+            mode == "auto" and sparse_mode_available(cfg))
+        steps = len(self.train_iter)
+        if self.sparse_tables:
+            # the dense params' optimizer: the step clips the whole set
+            self.optimizer = make_optimizer(dataclasses.replace(
+                cfg.train, gradient_clip_norm=0.0), steps)
+            self._sparse_schedule = make_schedule(cfg.train, steps)
+            self.opt_state = init_sparse_opt_state(self.optimizer,
+                                                   self.params)
+        else:
+            self.optimizer = make_optimizer(cfg.train, steps)
+            self.opt_state = self.optimizer.init(self.params)
         self.rng = torch.Generator(device=dev).manual_seed(cfg.train.seed + 1)
 
         embedding_ops.set_scatter_impl(*_SCATTER[cfg.train.embedding_scatter])
 
-        if cfg.train.steps_per_dispatch == 0:
-            cfg.train.steps_per_dispatch = self._autotune_dispatch()
-        make_step = (make_multi_train_step
-                     if cfg.train.steps_per_dispatch > 1 else make_train_step)
-        self.train_step = make_step(*self._step_args(), device=dev)
+        if self.sparse_tables:
+            if cfg.train.steps_per_dispatch == 0:
+                # the autotune probe builds the dense steps: skip it
+                log.info("sparse_table_update: steps_per_dispatch=8")
+                cfg.train.steps_per_dispatch = 8
+            make_step = (make_sparse_multi_train_step
+                         if cfg.train.steps_per_dispatch > 1
+                         else make_sparse_train_step)
+            self.train_step = make_step(
+                self.model, cfg, self.optimizer, self._sparse_schedule,
+                self.neg_cdf, self.item_dept, self.item_cat,
+                user_history=self.user_history, device=dev)
+        else:
+            if cfg.train.steps_per_dispatch == 0:
+                cfg.train.steps_per_dispatch = self._autotune_dispatch()
+            make_step = (make_multi_train_step
+                         if cfg.train.steps_per_dispatch > 1
+                         else make_train_step)
+            self.train_step = make_step(*self._step_args(), device=dev)
         self.eval_step = make_eval_step(
             self.model, cfg, self.neg_cdf, self.item_dept, self.item_cat,
             self.user_history, device=dev)
@@ -439,8 +459,9 @@ class Trainer:
 
     def _named_opt_state(self):
         t = self.cfg.train
-        return ckpt_lib.named_opt_state(self.opt_state, t.gradient_clip_norm,
-                                        t.weight_decay)
+        return ckpt_lib.named_opt_state(
+            self.opt_state, t.gradient_clip_norm, t.weight_decay,
+            t.embedding_weight_decay, t.embedding_learning_rate)
 
     def _state(self):
         # the step's generator is part of the trajectory (negatives and

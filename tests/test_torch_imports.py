@@ -35,6 +35,7 @@ def test_every_module_is_listed():
                  "ncf_tpu_torch.evals.metrics",
                  "ncf_tpu_torch.evals.evaluate",
                  "ncf_tpu_torch.evals.full_eval", "ncf_tpu_torch.train.optim",
+                 "ncf_tpu_torch.train.sparse",
                  "ncf_tpu_torch.train.step", "ncf_tpu_torch.ops.tower",
                  "ncf_tpu_torch.ops.gather", "ncf_tpu_torch.models.ncf",
                  "ncf_tpu_torch.train.trainer", "ncf_tpu_torch.train.autotune",
@@ -237,3 +238,19 @@ def test_serving_entry_points_default_to_the_card(monkeypatch, tmp_path):
     export_user_embeddings(params, cfg, str(tmp_path / "u.jsonl"),
                            device="cpu")
     assert (tmp_path / "u.jsonl").exists()
+
+
+def test_sparse_entry_points_default_to_the_card(monkeypatch):
+    from ncf_tpu_torch.models import get_model
+    from ncf_tpu_torch.train import (make_optimizer, make_schedule,
+                                     make_sparse_multi_train_step,
+                                     make_sparse_train_step)
+    from ncf_tpu_torch.utils.config import Config
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = Config()
+    cfg.train.embedding_optimizer = "rowwise_adagrad"
+    for build in (make_sparse_train_step, make_sparse_multi_train_step):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            build(get_model("advanced_ncf"), cfg, make_optimizer(cfg.train),
+                  make_schedule(cfg.train, 10))

@@ -165,14 +165,13 @@ def test_unported_modes_raise_at_construction(tmp_path, logs, monkeypatch):
         Trainer(cfg, tinter, device="cpu")
     cfg.mesh.enable = "auto"                        # one device: no mesh
     Trainer(cfg, tinter, device="cpu")
+    # the sparse table update is ported (test_torch_sparse.py): it builds
     cfg = _small(Config(), tmp_path, sparse_table_update="on",
                  embedding_optimizer="rowwise_adagrad", batch_size=8)
-    with pytest.raises(NotImplementedError, match="A4"):
-        Trainer(cfg, tinter, device="cpu")
+    assert Trainer(cfg, tinter, device="cpu").sparse_tables
     cfg = _small(Config(), tmp_path, embedding_optimizer="rowwise_adagrad",
-                 batch_size=8)                     # auto would go sparse
-    with pytest.raises(NotImplementedError, match="A4"):
-        Trainer(cfg, tinter, device="cpu")
+                 batch_size=8)                     # auto goes sparse
+    assert Trainer(cfg, tinter, device="cpu").sparse_tables
     cfg = _small(Config(), tmp_path, sparse_table_update="on")
     with pytest.raises(ValueError, match="rowwise_adagrad"):
         Trainer(cfg, tinter, device="cpu")
