@@ -164,7 +164,42 @@ Phases (each asserts; any failure exits non-zero and prints no result):
    ``validate``, a checkpoint every 3 dispatches), the training kernels
    counted through it; a ``Trainer`` resumes its first mid-epoch
    checkpoint and ends the epoch in the bits of the CLI's last
-   checkpoint, generator included.
+   checkpoint, generator included;
+18. the parallel layer (``ncf_tpu_torch/parallel``), each mesh phase as
+   fresh rank processes sharing the card over gloo (collectives staged
+   through host memory), the kernels built once before: ``dryrun_multichip(4)``
+   on the meshes (1, 4) and (2, 2), every sharded result held to the
+   one-rank result on the card, every token printed;
+19. sharded serving at full width: the bigvocab catalog (4M x 64, seeded)
+   split over 2 ranks, B 1 and 64, through ``sharded_topk_scores`` (B5,
+   B8) and ``sharded_topk_scores_prepared`` (B5, and B6 over one global
+   quantization), ties planted across the shard boundary: ids equal to
+   the single-device answer on rank 0; each rank's local-pass device ms
+   and the merge's host ms;
+20. sharded training at full width: ``advanced_ncf_ml25m_sharded.yaml``
+   (tables padded to 162,542 x 62,424 so they shard), global batch
+   32,768, mesh (1, 2), in f32: 3 steps with dropout 0, every leaf of
+   the params and of the Adam moments within 5e-5 of its largest of the
+   one-rank steps'; one step with the config's dropout on the plain
+   layers, the moments (the gradients) held so (one run stands for both
+   ``embedding_exchange`` settings: the port reads the setting nowhere
+   and routes every sharded table through the exchange); the
+   shipped bf16 config timed (B4f/B4b under the mesh); the bigvocab
+   sparse step at 12M x 4M over (1, 2) against the one-rank step from
+   one state, clip on and off (untouched rows bit-equal, touched rows
+   and accumulators within 1e-6 of their change, equal bits reported);
+   two runs of 8 mesh steps in equal bits; host and device ms, busy
+   share and peak memory a rank;
+21. ``python -m torch.distributed.run --nproc-per-node 2 -m
+   ncf_tpu_torch.cli train`` on the ML-25M sharded config (synthetic,
+   one epoch): its ``validate`` equal to the ranks of the mesh evaluator
+   on its checkpoint, those held to the single-device evaluator's under
+   the near-tie rule; the sharded checkpoint consolidated bit for bit and
+   restored on one process; a mid-epoch resume over 2 ranks ending in the
+   checkpoint's bits; one step over a (1, 1) mesh on NCCL equal bit for
+   bit to the step given no mesh.
+
+    python3 chip_smoke.py --mesh-only   # the kernels, then phases 18-21
 
     python3 chip_smoke.py --gate   # builds the kernels, then only the gate
 
@@ -4696,6 +4731,863 @@ def phase_gate_bigvocab(torch, card):
     return time.perf_counter() - t_phase, out
 
 
+# ------------------------------------------------- the mesh (phases 18-21)
+
+ML25M = os.path.join(ROOT, "configs", "advanced_ncf_ml25m_sharded.yaml")
+MESH_DIR = os.path.join(SMOKE_DIR, "mesh")
+MESH_LABEL = ("ranks sharing one card over gloo: collectives staged "
+              "through host memory; not a multi-card or NVLink figure")
+# the kernels the mesh phases must launch, counted per rank
+MESH_KERNELS = ("tree_sample_negatives", "onehot_scatter_add",
+                "fused_lookup_sum", "fused_tower_fwd", "fused_tower_bwd",
+                "topk_scores_streaming", "topk_scores_streaming_int8",
+                "topk_scores_pallas")
+# the dryrun's batches are tiny, and B3 takes 4,096 rows or more (the
+# reference's routing): the other phases launch it
+DRYRUN_KERNELS = tuple(k for k in MESH_KERNELS if k != "fused_lookup_sum")
+DRYRUN_TOKENS = ("sharded_tables=2", "all_to_all=ok",
+                 "sparse_sharded_seq(dcn=2,ici=2)=ok", "sharded_eval",
+                 "sharded_topk=ok", "sharded_topk_prepared=ok",
+                 "sharded_topk_int8=ok", "fused_tower_mesh=ok",
+                 "sequence_mesh=ok")
+MESH_STEP_REL = 5e-5      # tests/test_torch_train_step.py's step tolerance
+MESH_SPARSE_TOL = 1e-6    # of each touched row's change (phase 16's measure)
+MESH_RUN_STEPS = 8        # two runs of the mesh sparse step, equal bits
+P21_MID_EVERY = 40        # dispatches between phase 21's mid-epoch saves
+P21_EVAL_USERS = 20_000   # phase 21's eval users (of 162,542)
+
+
+def _counts():
+    from ncf_tpu_torch.ops import launch_counters
+
+    return {k: c.value for k, c in launch_counters().items()}
+
+
+# a rank's kernel launches on the main path of its phase: the mesh runs,
+# not the one-rank runs they are held to
+_TALLY: dict = {}
+
+
+def _tally(fn, *args, **kw):
+    """``fn(*args, **kw)``, its kernel launches added to ``_TALLY``."""
+    before = _counts()
+    out = fn(*args, **kw)
+    for k, v in _counts().items():
+        _TALLY[k] = _TALLY.get(k, 0) + v - before[k]
+    return out
+
+
+def _mesh_ranks(program, world, extra=(), timeout=600):
+    """Run this script's rank ``program`` on ``world`` ranks sharing the
+    card (fresh processes; the kernels are already built).  Returns
+    (each rank's result, wall seconds); a rank that fails fails the run
+    with every rank's output."""
+    from ncf_tpu_torch.parallel.multihost import run_ranks
+
+    os.makedirs(MESH_DIR, exist_ok=True)
+    t0 = time.perf_counter()
+    try:
+        run_ranks("chip_smoke", world, ["--program", program, *extra],
+                  timeout=timeout, capture=True)
+    except RuntimeError as e:
+        raise SmokeFailure(f"mesh {program}: {str(e)[-6000:]}")
+    res = []
+    for r in range(world):
+        with open(os.path.join(MESH_DIR, f"{program}.{r}.json")) as f:
+            res.append(json.load(f))
+    return res, time.perf_counter() - t0
+
+
+def _sum_launches(per_rank):
+    out = {}
+    for r in per_rank:
+        for k, v in r.items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def phase_mesh_dryrun(torch, card):
+    """Phase 18: ``dryrun_multichip(4)`` on the card."""
+    from ncf_tpu_torch.parallel.dryrun import dryrun_report
+
+    t0 = time.perf_counter()
+    try:
+        line, per_rank = dryrun_report(4, device="cuda", timeout=600)
+    except RuntimeError as e:
+        raise SmokeFailure(f"mesh dryrun: {str(e)[-6000:]}")
+    secs = time.perf_counter() - t0
+    for tok in DRYRUN_TOKENS:
+        check(tok in line, f"mesh dryrun: no {tok!r} in {line}")
+    check(len(per_rank) == 4, "mesh dryrun: a rank reported no launches")
+    for name in DRYRUN_KERNELS:
+        check(all(r.get(name, 0) > 0 for r in per_rank),
+              f"mesh dryrun: {name} not launched on every rank {per_rank}")
+    log(line)
+    return _sum_launches(per_rank), {"seconds": secs,
+                                     "launches_per_rank": per_rank,
+                                     "label": MESH_LABEL, "card": card}
+
+
+# ------------------------------------------------------- rank programs
+
+def _rank_main(argv):
+    """Entry of a rank started by ``_mesh_ranks``."""
+    import torch
+
+    from ncf_tpu_torch.parallel import multihost
+    from ncf_tpu_torch.parallel.mesh import make_mesh
+
+    rank, world, store, rest = multihost.rank_args(argv)
+    prog = rest[rest.index("--program") + 1]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    multihost.initialize_distributed(
+        init_method=f"file://{store}", world_size=world, rank=rank,
+        device="cuda", timeout_s=300)
+    mesh = make_mesh(dcn=1, ici=-1)
+    try:
+        out = RANK_PROGRAMS[prog](torch, mesh)
+    finally:
+        multihost.destroy()
+    out["launches"] = dict(_TALLY)
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    with open(os.path.join(MESH_DIR, f"{prog}.{rank}.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def _p19(torch, mesh):
+    """Phase 19 on one rank: the bigvocab catalog (4M x 64) split over the
+    ranks, B 1 and 64, through B5, B8, B5 prepared and B6."""
+    import numpy as np
+
+    from ncf_tpu_torch.ops import topk
+    from ncf_tpu_torch.parallel import sharded_topk as st
+    from ncf_tpu_torch.utils.config import Config
+
+    cfg = Config.from_yaml(BIGVOCAB)
+    I, D = cfg.data.synthetic_items, cfg.model.mf_dim
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    table = torch.randn((I, D), generator=gen, device="cuda") * 0.1
+    bias = torch.randn((I,), generator=gen, device="cuda") * 0.05
+    qs = {B: torch.randn((B, D), generator=gen, device="cuda")
+          for B in (1, 64)}
+    # planted ties across the shard boundary: the best row of each
+    # batch's first user copied into the second shard (and the first)
+    for q in qs.values():
+        best = int(topk.topk_scores_dense(q[:1], table, 1, bias)[1][0, 0])
+        for j in (I // 2 + 5, I - 7, 11):
+            table[j], bias[j] = table[best], bias[best]
+    qsample = torch.cat(list(qs.values())).abs().amax(0, keepdim=True)
+    t_loc, b_loc, n = st.shard_items(table, bias, mesh)
+    prep = st.shard_prepare_items(table, bias, mesh)
+    prep8 = st.shard_prepare_items_int8(table, bias, qsample, mesh)
+    k = 10
+    calls = {
+        "streaming": lambda q: st.sharded_topk_scores(
+            q, t_loc, b_loc, n, mesh, k, impl="streaming"),
+        "pallas": lambda q: st.sharded_topk_scores(
+            q, t_loc, b_loc, n, mesh, k, impl="pallas"),
+        "prepared": lambda q: st.sharded_topk_scores_prepared(
+            q, prep, mesh, k),
+        "int8": lambda q: st.sharded_topk_scores_prepared(
+            q, prep8, mesh, k, seg_top=1)}
+    got = {(name, B): _tally(fn, q) for name, fn in calls.items()
+           for B, q in qs.items()}
+    torch.cuda.synchronize()
+    out = {"equal": {}, "timing": {}}
+    # each rank's local pass (device ms, CUDA events) and the merge (host
+    # ms: the all_gather through host memory and the top-k of E * k)
+    local = {
+        "streaming": lambda q: topk.topk_scores(q, t_loc, k, b_loc,
+                                                impl="streaming"),
+        "pallas": lambda q: topk.topk_scores(q, t_loc, k, b_loc,
+                                             impl="pallas"),
+        "prepared": lambda q: topk.topk_scores_streaming(q, prep.local, k),
+        "int8": lambda q: topk.topk_scores_streaming_int8(
+            q, prep8.local, k, seg_top=1)}
+    for name, fn in local.items():
+        for B, q in qs.items():
+            v, i = fn(q)
+            merge = []
+            for _ in range(7):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                st._merge(mesh, v, i, prep.rows_loc if name == "prepared"
+                          else prep8.rows_loc if name == "int8"
+                          else t_loc.shape[0], n, k)
+                torch.cuda.synchronize()
+                merge.append((time.perf_counter() - t0) * 1e3)
+            out["timing"][f"{name}/B{B}"] = {
+                "local_device_ms": cuda_ms(lambda: fn(q), 5),
+                "merge_host_ms": statistics.median(merge)}
+    if mesh.rank == 0:
+        ref = {"streaming": lambda q: topk.topk_scores(
+                   q, table, k, bias, impl="streaming"),
+               "pallas": lambda q: topk.topk_scores(q, table, k, bias,
+                                                    impl="pallas"),
+               "prepared": lambda q: topk.topk_scores(
+                   q, topk.prepare_items(table, bias), k)}
+        one8 = topk.prepare_items_int8(table, bias, qsample,
+                                       block_items=prep8.block_items,
+                                       seg_width=prep8.seg_width)
+        ref["int8"] = lambda q: topk.topk_scores_streaming_int8(
+            q, one8, k, seg_top=1)
+        for (name, B), (v, i) in got.items():
+            rv, ri = ref[name](qs[B])
+            filled = rv > -1e38
+            same_ids = bool(torch.equal(torch.where(filled, i, -1),
+                                        torch.where(filled, ri, -1)))
+            check(same_ids, f"mesh serving {name} B={B}: ids differ from "
+                  "one device")
+            err = float((v - rv).abs().max())
+            check(err <= 1e-6 * max(1.0, float(rv.abs().max())),
+                  f"mesh serving {name} B={B}: values differ by {err}")
+            # the planted ties come in id order
+            row = i[0].tolist()
+            tie = [j for j in row if torch.equal(table[j], table[row[0]])]
+            check(tie == sorted(tie), f"mesh serving {name}: tie order")
+            out["equal"][f"{name}/B{B}"] = {"ids_equal": same_ids,
+                                            "max_value_diff": err,
+                                            "ties": len(tie)}
+    return out
+
+
+def _ml25m_cfg(E, f32):
+    from ncf_tpu_torch.parallel.mesh import pad_rows
+    from ncf_tpu_torch.utils.config import Config
+
+    cfg = Config.from_yaml(ML25M)
+    m = cfg.model
+    # the shipped sizes are odd; pad_rows makes the tables divide ici
+    m.num_users = pad_rows(cfg.data.synthetic_users, E)
+    m.num_items = pad_rows(cfg.data.synthetic_items, E)
+    m.num_departments, m.num_categories = 9, 30
+    if f32:
+        m.compute_dtype, m.dropout = "float32", 0.0
+    cfg.train.embedding_scatter = "exact"
+    return cfg
+
+
+def _ml25m_data(torch, cfg, steps, seed):
+    import numpy as np
+
+    from ncf_tpu_torch.data import make_sampling_cdf
+
+    m, B = cfg.model, cfg.train.batch_size
+    rng = np.random.default_rng(seed)
+    pop = 1.0 / np.arange(1, m.num_items + 1) ** 0.8
+    rng.shuffle(pop)
+    pop /= pop.sum()
+    pos_cdf = np.cumsum(pop)
+    batches = [{
+        "user_ids": np.sort(rng.integers(0, cfg.data.synthetic_users, B)),
+        "item_ids": np.minimum(np.searchsorted(pos_cdf, rng.random(B)),
+                               cfg.data.synthetic_items - 1),
+        "hour": rng.integers(0, 24, B), "day": rng.integers(0, 7, B),
+        "month": rng.integers(0, 12, B),
+        "day_of_year": rng.integers(0, 365, B)} for _ in range(steps)]
+    batches = [{k: torch.from_numpy(v.astype(np.int32)).cuda()
+                for k, v in b.items()} for b in batches]
+    consts = (make_sampling_cdf(1.0 / (pop * 1e6 + 1.0), device="cuda"),
+              rng.integers(0, 9, m.num_items).astype(np.int32),
+              rng.integers(0, 30, m.num_items).astype(np.int32))
+    return batches, consts
+
+
+def _host_ms(torch, fn, n):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / n
+
+
+def _p20a(torch, mesh, out):
+    """Phase 20(a): the ML-25M sharded config over the mesh against one
+    rank (f32): 3 dense steps with dropout off, params and Adam moments;
+    one step with the config's dropout on the plain layers, its Adam
+    moments (after one step from zero, ``(1 - b1) g`` and ``(1 - b2)
+    g^2``: the gradients themselves).  The params after a step with
+    dropout are reported, not held: Adam's first update is ``lr g / (|g|
+    + eps)``, so a gradient at the level of the sums' rounding moves its
+    param by up to ``lr`` either way.  Then the shipped bf16 config
+    timed."""
+    from ncf_tpu_torch.models import advanced_ncf
+    from ncf_tpu_torch.ops import embedding as emb
+    from ncf_tpu_torch.parallel.mesh import (SHARDED, gather_pytree,
+                                             param_shardings, shard_pytree)
+    from ncf_tpu_torch.train import make_optimizer, make_train_step
+    from ncf_tpu_torch.train.checkpoint import _leaves_with_path
+
+    E = mesh.shape["ici"]
+    cfg = _ml25m_cfg(E, f32=True)
+    batches, consts = _ml25m_data(torch, cfg, 3, seed=20)
+    dropout = _ml25m_cfg(E, f32=False).model.dropout
+
+    def init():
+        return advanced_ncf.init(torch.Generator(device="cuda").manual_seed(
+            0), cfg.model)
+
+    def run(params, mesh_, specs, steps):
+        opt = make_optimizer(cfg.train, 3)
+        state = opt.init(params)
+        step = make_train_step(advanced_ncf, cfg, opt, *consts,
+                               device="cuda", mesh=mesh_, shardings=specs)
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        losses = []
+        for b in batches[:steps]:
+            params, state, gen, mt = step(params, state, gen, b)
+            losses.append(float(mt["loss"]))
+        return [params, state["mu"], state["nu"]], losses
+
+    emb.set_scatter_impl("auto", "split")
+    full = init()
+    specs = param_shardings(full, mesh)
+    rows = {k: full[k].shape[0] for k, s in specs.items() if s == SHARDED}
+    check(sorted(rows) == ["item_emb", "user_emb"],
+          f"mesh step: tables not sharded {rows}")
+    del full
+    # the port reads mesh.embedding_exchange nowhere: under "pjit" and
+    # "explicit" alike the Trainer registers every sharded table, so one
+    # run stands for both settings
+    cfg.mesh.embedding_exchange = "explicit"
+    compared = {}
+    for rate, steps, held in ((0.0, 3, ("params", "mu", "nu")),
+                              (dropout, 1, ("mu", "nu"))):
+        cfg.model.dropout = rate
+        one = None
+        if mesh.rank == 0:
+            one, one_losses = run(init(), None, None, steps)
+        emb.set_exchange(mesh, rows, cfg.mesh.exchange_capacity_factor)
+        # fresh params: a step updates the replicated leaves in place
+        got, losses = _tally(run, shard_pytree(init(), specs, mesh), mesh,
+                             specs, steps)
+        emb.clear_exchange()
+        got = [gather_pytree(t, specs, mesh) for t in got]
+        if mesh.rank == 0:
+            worst = {}
+            for name, g, w in zip(("params", "mu", "nu"), got, one):
+                worst[name] = (0.0, "")
+                for (path, y), (_, x) in zip(_leaves_with_path(w),
+                                             _leaves_with_path(g)):
+                    top = float(y.abs().max())
+                    err = float((x - y).abs().max())
+                    check(name not in held
+                          or err <= max(MESH_STEP_REL * top, 1e-12),
+                          f"mesh step (dropout {rate}): {name}.{path} "
+                          f"differs by {err} > {MESH_STEP_REL * top} from "
+                          f"one rank")
+                    worst[name] = max(worst[name],
+                                      (err / max(top, 1e-30), path))
+            compared[f"dropout_{rate}"] = {
+                "steps": steps, "held": held,
+                "worst_rel_of_leaf_max": worst, "losses_mesh": losses,
+                "losses_one": one_losses}
+        del one, got
+    if mesh.rank == 0:
+        out["ml25m_vs_one_rank"] = compared
+
+    # the shipped config (bf16, dropout, the fused tower), timed
+    cfg = _ml25m_cfg(E, f32=False)
+    full = advanced_ncf.init(torch.Generator(device="cuda").manual_seed(0),
+                             cfg.model)
+    emb.set_exchange(mesh, rows, 0.0)
+    params = shard_pytree(full, specs, mesh)
+    del full
+    opt = make_optimizer(cfg.train, 10)
+    state = opt.init(params)
+    step = make_train_step(advanced_ncf, cfg, opt, *consts, device="cuda",
+                           mesh=mesh, shardings=specs)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    box = [params, state, gen]
+
+    def one_step(b=batches[0]):
+        box[0], box[1], box[2], _ = step(box[0], box[1], box[2], b)
+
+    _tally(one_step)
+    host = _host_ms(torch, one_step, 5)
+    prof = device_profile(one_step, 2, top=6)
+    emb.clear_exchange()
+    out["ml25m_bf16"] = {"host_ms_per_step": host,
+                         "examples_per_s": cfg.train.batch_size / host * 1e3,
+                         "device_ms_per_step": (prof or {}).get(
+                             "device_ms_per_call"),
+                         "busy_share": (prof or {}).get("busy_share"),
+                         "top_device_ms": (prof or {}).get(
+                             "kernels_ms_per_call")}
+
+
+def _p20b(torch, mesh, out):
+    """Phase 20(b, c): the bigvocab sparse step over the mesh at 12M x
+    4M against one rank's from the same state, clip on and off; two runs
+    of 8 mesh steps in equal bits; timed."""
+    import copy
+    import dataclasses
+
+    from ncf_tpu_torch.models import get_model
+    from ncf_tpu_torch.parallel.embedding_sharding import exchange_gather
+    from ncf_tpu_torch.parallel.mesh import rows_of
+    from ncf_tpu_torch.train import (init_sparse_opt_state, make_optimizer,
+                                     make_schedule, make_sparse_train_step)
+
+    cfg, params, consts, draw = _big_setup(torch)
+    cfg.model.dropout = 0.0
+    cfg.train.embedding_weight_decay = 0.0
+    model = get_model(cfg.model.name)
+    batch = {k: v[0] for k, v in draw(1, 20)[0].items()}    # one [B]
+    tables = ("user_emb", "item_emb")
+    # every rank keeps its rows; rank 0 also the whole tables, for the
+    # one-rank step
+    orig = {k: params[k][rows_of(mesh, params[k].shape[0])].clone()
+            for k in tables}
+    full_orig = ({k: params[k] for k in tables} if mesh.rank == 0
+                 else None)
+    dense_orig = {k: v for k, v in params.items() if k not in tables}
+    del params
+    torch.cuda.empty_cache()
+
+    def fresh(sharded):
+        p = copy.deepcopy(dense_orig)
+        for k in tables:
+            p[k] = orig[k].clone() if sharded else full_orig[k].clone()
+        return p
+
+    def step_fn(clip, mesh_):
+        c = copy.deepcopy(cfg)
+        c.train.gradient_clip_norm = clip
+        dense_opt = make_optimizer(dataclasses.replace(
+            c.train, gradient_clip_norm=0.0), 10)
+        return dense_opt, make_sparse_train_step(
+            model, c, dense_opt, make_schedule(c.train, 10), *consts,
+            mesh=mesh_, device="cuda")
+
+    def mesh_step(fn, p, s, b, seed):
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        return fn(p, s, gen, b)
+
+    ids_u, ids_i = batch["user_ids"], batch["item_ids"]
+    results = {}
+    for clip in (cfg.train.gradient_clip_norm, 0.0):
+        if mesh.rank == 0:
+            dense_opt, fn = step_fn(clip, None)
+            p1 = fresh(False)
+            p1, s1, _, _ = mesh_step(
+                fn, p1, init_sparse_opt_state(dense_opt, p1), batch, 7)
+        dense_opt, fn = step_fn(clip, mesh)
+        pm = fresh(True)
+        pm, sm, _, _ = _tally(mesh_step, fn, pm,
+                              init_sparse_opt_state(dense_opt, pm), batch, 7)
+        # the rows the batch touched (users and positives), gathered from
+        # their owners through the exchange
+        got = {"user_rows": exchange_gather(mesh, pm["user_emb"], ids_u),
+               "item_rows": exchange_gather(mesh, pm["item_emb"], ids_i),
+               "user_acc": exchange_gather(
+                   mesh, sm["user_acc"][:, None], ids_u)[:, 0]}
+        # rows no id touches keep their bits on every rank
+        sl = rows_of(mesh, orig["user_emb"].shape[0] * mesh.shape["ici"])
+        loc = ids_u.long() - sl.start
+        touched = torch.zeros(orig["user_emb"].shape[0], dtype=torch.bool,
+                              device="cuda")
+        touched[loc[(loc >= 0) & (loc < touched.shape[0])]] = True
+        same = (pm["user_emb"].view(torch.int32)
+                == orig["user_emb"].view(torch.int32)).all(1)
+        check(bool(same[~touched].all()),
+              "mesh sparse: untouched user rows changed")
+        if mesh.rank == 0:
+            summ = {}
+            for name, want, old in (
+                    ("user_rows", p1["user_emb"][ids_u.long()],
+                     full_orig["user_emb"][ids_u.long()]),
+                    ("item_rows", p1["item_emb"][ids_i.long()],
+                     full_orig["item_emb"][ids_i.long()]),
+                    ("user_acc", s1["user_acc"][ids_u.long()], None)):
+                g = got[name]
+                change = float((want.float() - (
+                    0 if old is None else old.float())).abs().max())
+                err = float((g.float() - want.float()).abs().max())
+                check(err <= MESH_SPARSE_TOL * max(change, 1e-30),
+                      f"mesh sparse clip={clip}: {name} differ by {err} "
+                      f"(change {change})")
+                summ[name] = {"max_diff": err, "max_change": change,
+                              "equal_bits": bool(torch.equal(g, want))}
+            results[f"clip={clip}"] = summ
+            del p1, s1
+        del pm, sm
+        torch.cuda.empty_cache()
+    if mesh.rank == 0:
+        out["bigvocab_vs_one_rank"] = results
+    full_orig = None
+    torch.cuda.empty_cache()
+
+    # (c) two runs of 8 mesh steps from one state end in equal bits
+    dense_opt, fn = step_fn(cfg.train.gradient_clip_norm, mesh)
+    stack = draw(1, 21)[0]                                  # [K, B]
+    batches = [{k: v[i] for k, v in stack.items()}
+               for i in range(MESH_RUN_STEPS)]
+    runs, host = [], []
+    for _ in range(2):
+        p = fresh(True)
+        s = init_sparse_opt_state(dense_opt, p)
+        gen = torch.Generator(device="cuda").manual_seed(9)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b in batches:
+            p, s, gen, mt = _tally(fn, p, s, gen, b)
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t0) * 1e3 / MESH_RUN_STEPS)
+        runs.append((p, s, float(mt["loss"])))
+        del p, s
+    (pa, sa, la), (pb, sb, lb) = runs
+    for k in tables:
+        check(torch.equal(pa[k], pb[k]),
+              f"mesh sparse: two runs differ in {k}")
+    check(torch.equal(sa["user_acc"], sb["user_acc"]) and la == lb,
+          "mesh sparse: two runs differ")
+    del runs, pa, sa
+    box = [pb, sb, gen]
+
+    def one_step(b=batches[0]):
+        box[0], box[1], box[2], _ = fn(box[0], box[1], box[2], b)
+
+    prof = device_profile(one_step, 2, top=6)
+    shard_gb = sum(t.numel() * t.element_size() for t in orig.values()) / 1e9
+    out["bigvocab_mesh"] = {
+        "host_ms_per_step": host, "loss": la,
+        "device_ms_per_step": (prof or {}).get("device_ms_per_call"),
+        "busy_share": (prof or {}).get("busy_share"),
+        "top_device_ms": (prof or {}).get("kernels_ms_per_call"),
+        "table_shard_gb": shard_gb}
+
+
+def _p20(torch, mesh):
+    out = {}
+    _p20a(torch, mesh, out)
+    _p20b(torch, mesh, out)
+    return out
+
+
+def _p21_overrides(d):
+    from ncf_tpu_torch.parallel.mesh import pad_rows
+    from ncf_tpu_torch.utils.config import Config
+
+    cfg = Config.from_yaml(ML25M)
+    return ["train.num_epochs=1", "data.dataset=synthetic",
+            # the shipped counts are odd; padded so the tables shard
+            f"data.synthetic_users={pad_rows(cfg.data.synthetic_users, 2)}",
+            f"data.synthetic_items={pad_rows(cfg.data.synthetic_items, 2)}",
+            f"train.checkpoint_dir={d}",
+            f"train.metrics_file={os.path.join(d, 'metrics.jsonl')}",
+            f"train.checkpoint_every_dispatches={P21_MID_EVERY}",
+            # a seeded sample of the eval users keeps the phase short
+            f"data.eval_user_sample={P21_EVAL_USERS}"]
+
+
+def _p21_ckpts(d):
+    """(the epoch-end checkpoint, the mid-epoch ones) of phase 21's run."""
+    from ncf_tpu_torch.train import checkpoint as ckpt_lib
+
+    ends, mids = [], []
+    for name in sorted(os.listdir(d)):
+        path = os.path.join(d, name)
+        if not os.path.exists(os.path.join(path, ckpt_lib.MANIFEST)):
+            continue
+        with open(os.path.join(path, ckpt_lib.MANIFEST)) as f:
+            extra = json.load(f).get("extra") or {}
+        (mids if extra.get("in_epoch") else ends).append(path)
+    return ends[-1], mids
+
+
+def _p21(torch, mesh):
+    """Phase 21 on one rank: a ``Trainer`` over the mesh restores the
+    CLI run's epoch checkpoint and ranks the eval users (ranks and
+    scores), rank 0 also with the one-device evaluator on the whole
+    params; then it resumes the first mid-epoch checkpoint and must end
+    the epoch in the epoch checkpoint's bits, generator included."""
+    import numpy as np
+
+    from ncf_tpu_torch import cli
+    from ncf_tpu_torch.convert import tree_leaves
+    from ncf_tpu_torch.evals.evaluate import DeviceEvaluator
+    from ncf_tpu_torch.evals.metrics import positive_ranks
+    from ncf_tpu_torch.parallel.mesh import gather_pytree
+    from ncf_tpu_torch.train import Trainer
+    from ncf_tpu_torch.utils.config import Config
+
+    d = os.path.join(SMOKE_DIR, "p21")
+    end, mids = _p21_ckpts(d)
+    check(bool(mids), "mesh loop: no mid-epoch checkpoint")
+    cfg = Config.from_yaml(ML25M)
+    cfg.apply_overrides(_p21_overrides(d))
+    inter = cli._load_interactions(cfg)
+    cfg.train.checkpoint_dir = os.path.join(MESH_DIR, "p21")
+    cfg.train.metrics_file = ""
+    cfg.train.checkpoint_every_dispatches = 0
+    t = Trainer(cfg, inter, mesh=mesh, device="cuda")
+    check(t.resume(end), "mesh loop: no epoch checkpoint")
+
+    def evaluator(mesh_):
+        # what ``Trainer.validate`` builds (``data.eval_protocol``
+        # sampled); the ranks come from its scores by ``positive_ranks``
+        return DeviceEvaluator(
+            t.model, t.cfg.model, t.eval_set,
+            batch_size=t.cfg.data.eval_batch_size, item_dept=t.item_dept,
+            item_cat=t.item_cat, user_history=t.eval_history,
+            device="cuda", mesh=mesh_)
+
+    def ranks_of(scores):
+        return positive_ranks(torch.from_numpy(scores)).numpy()
+
+    scores = _tally(evaluator(mesh).scores, t.params)
+    whole = gather_pytree(t.params, t.shardings, mesh)
+    end_rng = t.rng.get_state()
+    out = {}
+    if mesh.rank == 0:
+        one = evaluator(None).scores(whole)
+        np.savez(os.path.join(MESH_DIR, "p21_ranks.npz"),
+                 mesh_ranks=ranks_of(scores), mesh_scores=scores,
+                 one_ranks=ranks_of(one), one_scores=one)
+    t.resume(mids[0])
+    _tally(t.train_epoch, t.start_epoch)
+    resumed = gather_pytree(t.params, t.shardings, mesh)
+    out["resume_equal"] = all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(resumed), tree_leaves(whole)))
+    out["resume_rng_equal"] = bool(torch.equal(t.rng.get_state(), end_rng))
+    out["resumed_from"] = os.path.basename(mids[0])
+    out["ended_at"] = os.path.basename(end)
+    return out
+
+
+def _p21nccl(torch, mesh):
+    """One step over the ``(1, 1)`` mesh on NCCL (its world collectives
+    run) against the step given no mesh (the process's own ``(1, 1)``
+    mesh, where none runs), from one state: equal bits."""
+    import copy
+
+    from ncf_tpu_torch.convert import tree_leaves
+    from ncf_tpu_torch.models import advanced_ncf
+    from ncf_tpu_torch.train import make_optimizer, make_train_step
+
+    check(mesh.backend == "nccl" and mesh.size == 1,
+          f"mesh loop: the (1, 1) mesh is on {mesh.backend}")
+    cfg = _ml25m_cfg(1, f32=False)
+    cfg.train.batch_size = 8192
+    batches, consts = _ml25m_data(torch, cfg, 1, seed=22)
+    p0 = advanced_ncf.init(torch.Generator(device="cuda").manual_seed(0),
+                           cfg.model)
+    got = []
+    for m in (mesh, None):
+        p = copy.deepcopy(p0)
+        opt = make_optimizer(cfg.train, 10)
+        s = opt.init(p)
+        step = make_train_step(advanced_ncf, cfg, opt, *consts,
+                               device="cuda", mesh=m)
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        p, s, _, mt = (_tally if m is not None else
+                       (lambda f, *a: f(*a)))(step, p, s, gen, batches[0])
+        got.append((tree_leaves(p) + tree_leaves(s), float(mt["loss"])))
+    equal = all(torch.equal(a, b) for a, b in zip(got[0][0], got[1][0]))
+    check(equal and got[0][1] == got[1][1],
+          "mesh loop: the (1, 1) NCCL step differs from the step without "
+          "a mesh")
+    return {"backend": mesh.backend, "equal_bits": equal,
+            "loss": got[0][1]}
+
+
+RANK_PROGRAMS = {"p19": _p19, "p20": _p20, "p21": _p21}
+
+
+def phase_mesh_serving(torch, card):
+    """Phase 19: the bigvocab catalog split over 2 ranks."""
+    res, secs = _mesh_ranks("p19", 2)
+    per_rank = [r["launches"] for r in res]
+    for name in ("topk_scores_streaming", "topk_scores_pallas",
+                 "topk_scores_streaming_int8"):
+        check(all(r.get(name, 0) > 0 for r in per_rank),
+              f"mesh serving: {name} not launched on every rank")
+    summary = {"seconds": secs, "equal": res[0]["equal"],
+               "timing_per_rank": [r["timing"] for r in res],
+               "launches_per_rank": per_rank,
+               "peak_gb_per_rank": [r["peak_gb"] for r in res],
+               "label": MESH_LABEL, "card": card}
+    return _sum_launches(per_rank), summary
+
+
+def phase_mesh_training(torch, card):
+    """Phase 20: ML-25M sharded and bigvocab sparse over 2 ranks."""
+    res, secs = _mesh_ranks("p20", 2, timeout=900)
+    per_rank = [r["launches"] for r in res]
+    for name in ("tree_sample_negatives", "onehot_scatter_add",
+                 "fused_lookup_sum", "fused_tower_fwd", "fused_tower_bwd"):
+        check(all(r.get(name, 0) > 0 for r in per_rank),
+              f"mesh training: {name} not launched on every rank")
+    r0 = res[0]
+    shard = r0["bigvocab_mesh"]["table_shard_gb"]
+    reckon = (f"bigvocab tables {2 * shard:.2f} GB f32: a rank holds its "
+              f"half ({shard:.2f} GB) and, in this phase, a saved copy of "
+              f"it and rank 0 the whole tables for the one-rank step; "
+              f"peaks {[round(r['peak_gb'], 2) for r in res]} GB of 80")
+    log("mesh training memory: " + reckon)
+    summary = {"seconds": secs, "ml25m_vs_one_rank": r0[
+                   "ml25m_vs_one_rank"],
+               "bigvocab_vs_one_rank": r0["bigvocab_vs_one_rank"],
+               "ml25m_bf16_per_rank": [r["ml25m_bf16"] for r in res],
+               "bigvocab_mesh_per_rank": [r["bigvocab_mesh"] for r in res],
+               "launches_per_rank": per_rank,
+               "peak_gb_per_rank": [r["peak_gb"] for r in res],
+               "memory": reckon, "label": MESH_LABEL, "card": card}
+    return _sum_launches(per_rank), summary
+
+
+def phase_mesh_loop(torch, card):
+    """Phase 21: ``torch.distributed.run`` of the CLI over 2 ranks, its
+    validate against the one-device evaluator, its sharded checkpoint
+    consolidated and restored, a mid-epoch resume over the mesh, and a
+    ``(1, 1)`` step over NCCL."""
+    import shutil
+
+    import numpy as np
+
+    from ncf_tpu_torch.evals.evaluate import metrics_from_ranks
+    from ncf_tpu_torch.models import advanced_ncf
+    from ncf_tpu_torch.train import checkpoint as ckpt_lib
+    from ncf_tpu_torch.train.checkpoint import _leaves_with_path, _load_leaf
+    from ncf_tpu_torch.utils.config import Config
+
+    d = os.path.join(SMOKE_DIR, "p21")
+    shutil.rmtree(d, ignore_errors=True)
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    os.makedirs(MESH_DIR, exist_ok=True)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", "2", "-m", "ncf_tpu_torch.cli", "train",
+           "--config", ML25M, "--device", "cuda", "--log-level", "WARNING",
+           *_p21_overrides(d)]
+    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="2")
+    t0 = time.perf_counter()
+    run = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                         timeout=900, cwd=ROOT)
+    cli_s = time.perf_counter() - t0
+    check(run.returncode == 0, f"mesh loop: torch.distributed.run of the "
+          f"CLI exited {run.returncode}\n{run.stdout[-3000:]}\n"
+          f"{run.stderr[-6000:]}")
+    rules = [ln for ln in (run.stdout + run.stderr).splitlines()
+             if "backend" in ln and "rank" in ln]
+    check(len(rules) >= 2, "mesh loop: the ranks printed no backend rule")
+    with open(os.path.join(d, "metrics.jsonl")) as f:
+        recs = [json.loads(x) for x in f]
+    val = [r for r in recs if r.get("kind") == "val"][-1]
+    steps = max(r["step"] for r in recs if r.get("kind") == "train")
+    end, mids = _p21_ckpts(d)
+    man = json.load(open(os.path.join(end, ckpt_lib.MANIFEST)))
+    check(man["leaves"]["params.user_emb"]["kind"] == "sharded",
+          "mesh loop: the checkpoint's tables are not sharded")
+
+    # consolidated bit for bit, and restored on one process
+    cons = ckpt_lib.consolidate(end, os.path.join(MESH_DIR,
+                                                  "p21_consolidated"))
+    cman = json.load(open(os.path.join(cons, ckpt_lib.MANIFEST)))
+    for path_s, meta in man["leaves"].items():
+        if meta["kind"] == "scalar":
+            continue
+        a = _load_leaf(end, meta)
+        b = _load_leaf(cons, cman["leaves"][path_s])
+        check(a.dtype == b.dtype and a.shape == b.shape
+              and a.tobytes() == b.tobytes(),
+              f"mesh loop: consolidated {path_s} differs")
+    cfg = Config.from_yaml(ML25M)
+    cfg.model.num_users, cfg.model.num_items = (
+        man["leaves"][f"params.{k}"]["global_shape"][0]
+        for k in ("user_emb", "item_emb"))
+    tmpl = advanced_ncf.init(torch.Generator(device="cuda").manual_seed(0),
+                             cfg.model, device="meta")
+    state, _ = ckpt_lib.restore(end, {"params": _materialize(torch, tmpl)},
+                                device="cuda")
+    for p, v in _leaves_with_path(state["params"]):
+        check(np.array_equal(v.float().cpu().numpy(), _load_leaf(
+            cons, cman["leaves"][f"params.{p}"]).astype(np.float32)),
+            f"mesh loop: restored params.{p} differs")
+    del state
+    torch.cuda.empty_cache()
+
+    res, p21_s = _mesh_ranks("p21", 2, timeout=900)
+    check(all(r["resume_equal"] and r["resume_rng_equal"] for r in res),
+          "mesh loop: the mid-epoch resume ended in other bits")
+    rk = np.load(os.path.join(MESH_DIR, "p21_ranks.npz"))
+    got, want = rk["mesh_ranks"], rk["one_ranks"]
+    gap = float(np.abs(rk["mesh_scores"] - rk["one_scores"]).max())
+    near = _near_ties(rk["one_scores"], np.zeros(len(want), np.int64), gap)
+    held = _hold_ranks(got, want, near, gap, "mesh loop")
+    mine = metrics_from_ranks(got)
+    for k in ("hr@10", "ndcg@10", "mrr@10", "hr@1", "hr@5"):
+        check(mine[k] == val[k],
+              f"mesh loop: {k} {val[k]} (CLI) vs {mine[k]} (ranks)")
+    one = metrics_from_ranks(want)
+
+    nccl, nccl_s = _nccl_one_rank(torch)
+    summary = {"cli_seconds": cli_s, "steps": steps,
+               "validate_cli": {k: val[k] for k in ("val_loss", "hr@10",
+                                                     "ndcg@10")},
+               "validate_one_device": {k: one[k] for k in ("hr@10",
+                                                           "ndcg@10")},
+               "ranks": held, "resumed_from": res[0]["resumed_from"],
+               "checkpoint_leaves_sharded": sum(
+                   v["kind"] == "sharded" for v in man["leaves"].values()),
+               "p21_seconds": p21_s, "nccl": nccl, "nccl_seconds": nccl_s,
+               "backend_rule": rules[:2], "label": MESH_LABEL, "card": card}
+    launches = _sum_launches([r["launches"] for r in res]
+                             + [nccl["launches"]])
+    return launches, summary
+
+
+def _nccl_one_rank(torch):
+    """``_p21nccl`` in this process, as the one rank of an NCCL group
+    (joined through a ``file://`` store, left after)."""
+    from ncf_tpu_torch.parallel import multihost
+    from ncf_tpu_torch.parallel.mesh import make_mesh
+
+    t0 = time.perf_counter()
+    multihost.initialize_distributed(
+        init_method=f"file://{os.path.join(MESH_DIR, 'nccl_store')}",
+        world_size=1, rank=0, device="cuda", timeout_s=120)
+    _TALLY.clear()
+    try:
+        out = _p21nccl(torch, make_mesh())
+    finally:
+        multihost.destroy()
+    out["launches"] = dict(_TALLY)
+    return out, time.perf_counter() - t0
+
+
+def _materialize(torch, tree):
+    from ncf_tpu_torch.convert import tree_map
+
+    return tree_map(lambda x: torch.empty(x.shape, dtype=x.dtype,
+                                          device="cuda"), tree)
+
+
+def run_mesh_phases(torch, card):
+    """Phases 18-21 (the parallel layer); returns their kernel launches,
+    summed over the ranks of each mesh."""
+    launches = {}
+    for name, fn in (("mesh_dryrun", phase_mesh_dryrun),
+                     ("mesh_serving", phase_mesh_serving),
+                     ("mesh_training", phase_mesh_training),
+                     ("mesh_loop", phase_mesh_loop)):
+        t0 = time.perf_counter()
+        got, summary = fn(torch, card)
+        log(f"phase {name} {time.perf_counter() - t0:.1f} s, kernel "
+            f"launches {json.dumps(got)}")
+        log(f"{name}_json: " + json.dumps(summary))
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+    for name in MESH_KERNELS:
+        check(launches.get(name, 0) > 0,
+              f"{name}: never launched under the mesh")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -4742,6 +5634,15 @@ def main() -> int:
             log(f"phase gate {gate_s:.1f} s (every recipe at its N seeds)")
         gate_s, _ = phase_gate_bigvocab(torch, card)
         log(f"phase gate[bigvocab] {gate_s:.1f} s")
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
+    if "--mesh-only" in sys.argv[1:]:
+        # the parallel layer's phases alone (18-21), with their contract
+        # lines; the default run drives every phase
+        launches = run_mesh_phases(torch, card)
+        log("mesh_launches_json: " + json.dumps(launches))
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}), flush=True)
@@ -4876,6 +5777,9 @@ def main() -> int:
     log("bigvocab_trainer_json: " + json.dumps(cli_summary))
     for k, v in list(big_launches.items()) + list(cli_launches.items()):
         launches[k] = launches.get(k, 0) + v
+    torch.cuda.empty_cache()
+    for k, v in run_mesh_phases(torch, card).items():
+        launches[k] = launches.get(k, 0) + v
 
     # one timed shape per kernel: the serving bucket for B5, the pooled
     # stratified draw for B1, the item table for B2, the step for B3, the
@@ -4910,6 +5814,9 @@ def main() -> int:
 
 if __name__ == "__main__":
     try:
+        if "--rank" in sys.argv[1:]:            # a rank of a mesh phase
+            sys.path.insert(0, ROOT)
+            sys.exit(_rank_main(sys.argv[1:]))
         sys.exit(main())
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)

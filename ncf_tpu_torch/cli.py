@@ -11,6 +11,19 @@ own flags (``--resume`` for ``train``; ``--checkpoint`` and ``--protocol
 
 Usage:  python -m ncf_tpu_torch.cli <command> [--config cfg.yaml]
         [--device cuda|cpu] [section.key=value ...]
+
+``train`` over a mesh runs one process a rank:
+
+    python -m torch.distributed.run --nproc-per-node N \
+        -m ncf_tpu_torch.cli train --config cfg.yaml
+
+Each rank joins the process group from torchrun's environment
+(``parallel/multihost.py``: NCCL when every rank has a card of its own,
+gloo when ranks share one) and works on the card ``LOCAL_RANK mod
+cards``.  Several ranks always train over one mesh of them, shaped by
+``mesh.dcn_axis``/``mesh.ici_axis`` (a multi-process launch builds its
+own mesh, as the reference's ``MeshConfig.enable`` comment says);
+``mesh.enable`` decides for one process (``Config.build_mesh``).
 """
 
 from __future__ import annotations
@@ -92,15 +105,25 @@ def _sized_config(args):
 def cmd_train(args) -> int:
     from ncf_tpu_torch.train import Trainer
 
+    from ncf_tpu_torch.parallel import make_mesh, multihost
+
     cfg = load_config(args)
+    _, world = multihost.initialize_distributed(device=args.device)
+    device = multihost.rank_device(args.device)
     inter = _load_interactions(cfg)
-    trainer = Trainer(cfg, inter, device=args.device)
+    mesh = (make_mesh(dcn=cfg.mesh.dcn_axis, ici=cfg.mesh.ici_axis)
+            if world > 1 else cfg.build_mesh())
+    if mesh is not None:
+        log.info("training over mesh %s", mesh.shape)
+    trainer = Trainer(cfg, inter, mesh=mesh, device=device)
     if args.resume:
         trainer.resume()
     best = trainer.train()
     log.info("best metrics: %s", best)
-    print({k: round(v, 4) for k, v in best.items()
-           if isinstance(v, (int, float))})
+    if multihost.is_primary():
+        print({k: round(v, 4) for k, v in best.items()
+               if isinstance(v, (int, float))})
+    multihost.destroy()
     return 0
 
 

@@ -13,7 +13,13 @@ copy to the host an evaluation.  Scoring goes through the model's
 under ``fused_tower: auto`` with bf16 compute.
 
 Where the reference takes ``sharding=`` (a placement over the training
-mesh), the port takes ``device=``; the mesh comes with the parallel layer.
+mesh), the port takes ``device=`` and ``mesh=``.  Under a mesh of
+several ranks the padded user blocks are split evenly over the ranks, so
+every rank makes the same number of collective calls; each rank scores
+its blocks with its parts of the params (the lookups of row-sharded
+tables go through the exchange, which the trainer registers), and the
+ranks are gathered over the world once an evaluation.  The metrics are
+those of the single-device evaluator on the same params.
 """
 
 from __future__ import annotations
@@ -158,20 +164,29 @@ class DeviceEvaluator:
         item_cat=None,
         user_history=None,
         device: DeviceLike = None,
+        mesh=None,
     ):
         self.model = model
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
         self.U = len(eval_set.users)
         B = int(min(batch_size, self.U))
         nb = -(-self.U // B)
+        parts = 1 if self.mesh is None else self.mesh.size
+        nb = -(-nb // parts) * parts            # every rank the same count
         pad = nb * B - self.U
+        mine = slice(None)
+        if self.mesh is not None:
+            per = nb // parts
+            mine = slice(self.mesh.rank * per, (self.mesh.rank + 1) * per)
 
         def _stack(x):
             x = np.asarray(x)
             if pad:
                 x = np.concatenate([x, np.repeat(x[:1], pad, axis=0)])
-            return _tensor(x.reshape((nb, B) + x.shape[1:]), self.device)
+            return _tensor(x.reshape((nb, B) + x.shape[1:])[mine],
+                           self.device)
 
         self._users = _stack(eval_set.users)
         self._cands = _stack(eval_set.candidates)
@@ -181,13 +196,13 @@ class DeviceEvaluator:
             ("dept", item_dept), ("cat", item_cat), ("hist", user_history))
             if v is not None}
 
-    def ranks(self, params) -> np.ndarray:
-        """Per-user 0-based rank of the positive; one copy to the host."""
-        nb, B = self._users.shape
-        out = torch.empty((nb, B), dtype=torch.int32, device=self.device)
+    def _blocks(self, params, fn):
+        """``fn(scores)`` of every block of this rank, stacked ``[nb, B,
+        ...]`` on the device, then gathered over the mesh's ranks."""
         hist = self._consts.get("hist")
+        outs = []
         with torch.no_grad():
-            for i in range(nb):
+            for i in range(self._users.shape[0]):
                 u = self._users[i]
                 temporal = ({k: v[i] for k, v in self._temporal.items()}
                             if self._temporal else None)
@@ -198,8 +213,22 @@ class DeviceEvaluator:
                     params, self.cfg, u, self._cands[i], temporal,
                     self._consts.get("dept"), self._consts.get("cat"),
                     **kwargs)
-                out[i] = positive_ranks(scores)
-        return out.reshape(-1).cpu().numpy()[: self.U]
+                outs.append(fn(scores))
+        out = torch.stack(outs)
+        out = out.reshape((-1,) + tuple(out.shape[2:]))
+        if self.mesh is not None:
+            out = self.mesh.all_gather(out, "world")
+        return out.cpu().numpy()[: self.U]
+
+    def ranks(self, params) -> np.ndarray:
+        """Per-user 0-based rank of the positive; one copy to the host."""
+        return self._blocks(params, lambda s: positive_ranks(s).to(
+            torch.int32))
+
+    def scores(self, params) -> np.ndarray:
+        """Per-user candidate scores [U, 1+N] (the positive in column
+        0), as ``ranks`` ranks them."""
+        return self._blocks(params, lambda s: s.to(torch.float32))
 
     def __call__(self, params, ks=(1, 5, 10)) -> Dict[str, float]:
         return metrics_from_ranks(self.ranks(params), ks)

@@ -31,6 +31,11 @@ counts are subtracted from the catalog counts.
 ``full_ranks_naive`` scores the whole catalog through the model's
 ``score_candidates`` (B4f on the card under ``fused_tower: auto``): the
 parity oracle, and the evaluator for models without the split.
+
+Under a mesh of several ranks (``mesh=``, ``shardings=``) the eval users
+are split into equal padded parts, one a rank; every rank gathers the
+row-sharded tables whole (the item side is the whole catalog), ranks its
+part and the parts are gathered over the world.
 """
 
 from __future__ import annotations
@@ -120,9 +125,24 @@ class FullCatalogEvaluator:
         item_block: int = 2048,
         pair_chunk: int = 1 << 16,  # exclusion-pass pairs a chunk
         device: DeviceLike = None,
+        mesh=None,
+        shardings=None,
     ):
         self.cfg = cfg
         self.device = dev = resolve_device(device)
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        self.shardings = shardings
+        self.U_all = len(eval_users)
+        if self.mesh is not None:
+            n = self.mesh.size
+            per = -(-len(eval_users) // n)
+            r = self.mesh.rank
+            eval_users = _pad_to(np.asarray(eval_users), per * n,
+                                 np.asarray(eval_users)[0])[
+                                     r * per:(r + 1) * per]
+            eval_items = _pad_to(np.asarray(eval_items), per * n,
+                                 np.asarray(eval_items)[0])[
+                                     r * per:(r + 1) * per]
         self.U = len(eval_users)
         self.V = cfg.num_items
         Bu = min(int(user_block), max(1, self.U))
@@ -282,6 +302,16 @@ class FullCatalogEvaluator:
     def ranks(self, params) -> np.ndarray:
         """Per-user 0-based pessimistic rank over catalog minus history;
         one copy to the host."""
+        if self.mesh is None:
+            return self._ranks(params).cpu().numpy()
+        from ncf_tpu_torch.parallel.mesh import gather_pytree
+
+        if self.shardings is not None:
+            params = gather_pytree(params, self.shardings, self.mesh)
+        out = self.mesh.all_gather(self._ranks(params), "world")
+        return out.cpu().numpy()[:self.U_all]
+
+    def _ranks(self, params) -> torch.Tensor:
         cfg, C, V, U = self.cfg, self._C, self.V, self.U
         dtype = torch_dtype(cfg.compute_dtype)
         dev = self.device
@@ -336,7 +366,7 @@ class FullCatalogEvaluator:
                 geh.index_add_(0, uu, ((s >= sp) & ok).to(torch.int32))
             # the pessimistic tie rule over catalog minus history
             out = torch.maximum(g - gh, ge - geh)
-        return out.cpu().numpy()
+        return out
 
     def __call__(self, params, ks=(1, 5, 10)) -> Dict[str, float]:
         out = metrics_from_ranks(self.ranks(params), ks)

@@ -19,6 +19,18 @@ role index into its key, so the two agree in distribution only.  The
 tower routes as the reference's ``_tower`` does, with "on a TPU" read as
 "on the card": ``fused_tower`` ``"auto"`` takes the fused kernels (B4,
 ``ops/tower.py``) for a bf16 CUDA tower that ``tower_fits``.
+
+Under a mesh (``parallel/``) each rank runs ``apply`` on its slice of the
+batch.  The table lookups name their table, so that the exchange routes
+those of row-sharded tables (``ops/embedding.py::set_exchange``); a
+table derived row by row from a shard (the precompute branch's) is a
+shard of the same name, and the category hierarchy of an item shard is
+built from that shard's rows of ``item_dept``/``item_cat``.  The step
+passes ``mesh``: every rank takes the vocabulary branch the whole batch
+would, each plain dropout mask is this rank's rows of the mask over the
+whole batch (or over the whole item table, for the hierarchy table of a
+shard), and the fused tower folds the rank into its dropout seed, as
+the reference's does.
 """
 
 from __future__ import annotations
@@ -30,6 +42,7 @@ import torch
 
 from ncf_tpu_torch.models import temporal as temporal_mod
 from ncf_tpu_torch.models.layers import (
+    batch_part,
     dense,
     dense_init,
     dropout,
@@ -40,7 +53,7 @@ from ncf_tpu_torch.models.layers import (
     mlp_tower,
     mlp_tower_init,
 )
-from ncf_tpu_torch.ops.embedding import embedding_lookup
+from ncf_tpu_torch.ops.embedding import embedding_lookup, shard_rows
 from ncf_tpu_torch.ops.tower import fused_tower, tower_fits
 from ncf_tpu_torch.utils.config import ModelConfig
 from ncf_tpu_torch.utils.device import torch_dtype
@@ -104,6 +117,7 @@ def _single_query_attention(
     deterministic: bool,
     dtype,
     key_mask: Optional[torch.Tensor] = None,
+    part=None,
 ) -> torch.Tensor:
     """Candidate-slot attention with the repeated-user query computed
     once (Sq=1).  Returns [B, D]."""
@@ -111,7 +125,7 @@ def _single_query_attention(
     k = dense(p["k"], item_mlp, dtype)
     v = dense(p["v"], item_mlp, dtype)
     return _sqa_core(p, q, k, v, num_heads, dropout_rate, rng,
-                     deterministic, dtype, key_mask)
+                     deterministic, dtype, key_mask, part)
 
 
 def _sqa_core(
@@ -125,8 +139,10 @@ def _sqa_core(
     deterministic: bool,
     dtype,
     key_mask: Optional[torch.Tensor] = None,
+    part=None,
 ) -> torch.Tensor:
-    """Post-projection half of ``_single_query_attention``."""
+    """Post-projection half of ``_single_query_attention``; ``part`` as
+    ``layers.dropout``'s."""
     B, S, D = k.shape
     H = num_heads
     hd = D // H
@@ -139,7 +155,7 @@ def _sqa_core(
     if key_mask is not None:
         weights = torch.where(key_mask[:, :, None], weights,
                               torch.zeros_like(weights))
-    weights = dropout(rng, weights, dropout_rate, deterministic)
+    weights = dropout(rng, weights, dropout_rate, deterministic, part)
     pooled = (weights.to(v.dtype)[..., None]
               * v.reshape(B, S, H, hd)).sum(dim=1)           # [B, H, hd]
     out = dense(p["o"], pooled.reshape(B, D), dtype)
@@ -157,13 +173,14 @@ def _hierarchy_table(
     rng,
     deterministic: bool,
     dtype,
+    part=None,
 ) -> torch.Tensor:
     """Per-item category-hierarchy vectors [num_items, D]:
-    LN(dropout(Wo Wv dept_e) + cat_e)."""
+    LN(dropout(Wo Wv dept_e) + cat_e); ``part`` as ``layers.dropout``'s."""
     dept_e = embedding_lookup(p["dept"], item_dept)
     cat_e = embedding_lookup(p["cat"], item_cat)
     fused = _singleton_attention(p["attn"], dept_e.to(dtype), dtype)
-    fused = dropout(rng, fused, dropout_rate, deterministic)
+    fused = dropout(rng, fused, dropout_rate, deterministic, part)
     return layer_norm(p["norm"], fused.to(torch.float32) + cat_e)
 
 
@@ -173,14 +190,16 @@ def _use_vocab_precompute(cfg: ModelConfig, batch_rows: int) -> bool:
     return cfg.num_items + cfg.num_users <= 4 * batch_rows
 
 
-def _tower(layers, x, cfg: ModelConfig, rng, deterministic: bool, dtype):
+def _tower(layers, x, cfg: ModelConfig, rng, deterministic: bool, dtype,
+           mesh=None):
     """The MLP tower, routed as the reference routes it
     (``advanced_ncf.py:235-262``): ``"auto"`` takes the fused kernels for
     a bf16 tower on the card whose shape ``tower_fits``, else the plain
     layers; ``"on"`` and ``"interpret"`` always take fused semantics (the
     kernels on the card, their plain version on the CPU) and raise where
     the shape does not fit; ``"off"`` takes the plain layers.
-    ``remat_tower`` only changes memory, so it needs nothing here."""
+    ``remat_tower`` only changes memory, so it needs nothing here.
+    ``mesh``: ``x`` is this rank's slice of a batch split over it."""
     mode = getattr(cfg, "fused_tower", "off")
     if mode in ("auto", "on", "interpret"):
         fits = tower_fits(layers, x.shape[-1])
@@ -190,8 +209,10 @@ def _tower(layers, x, cfg: ModelConfig, rng, deterministic: bool, dtype):
                 raise ValueError(
                     f"fused_tower={mode!r} but the tower shape does not fit "
                     f"(in_dim={x.shape[-1]})")
-            return fused_tower(layers, x, cfg.dropout, rng, deterministic)
-    return mlp_tower(layers, x, cfg.dropout, rng, deterministic, dtype)
+            return fused_tower(layers, x, cfg.dropout, rng, deterministic,
+                               mesh=mesh)
+    return mlp_tower(layers, x, cfg.dropout, rng, deterministic, dtype,
+                     batch_part(mesh))
 
 
 # ---------------------------------------------------------------- forward
@@ -211,6 +232,7 @@ def apply(
     user_rows: Optional[torch.Tensor] = None,     # [B, 2d] gathered rows
     item_rows: Optional[torch.Tensor] = None,     # [B, S, 2d]
     history_rows: Optional[torch.Tensor] = None,  # [B, H, 2d]
+    mesh=None,
 ) -> torch.Tensor:
     """Forward pass -> logits [B, S].  Training mode
     (``deterministic=False``) draws its dropout masks from ``rng``, a
@@ -222,12 +244,16 @@ def apply(
     gathered by the caller (the sparse table update of ``train/step.py``):
     they stand in for the lookups of ``user_ids``, ``item_ids`` and
     ``history``, so the gradient flows to them and no ``[V, 2d]`` table
-    gradient is formed.  Only the precompute-off regime takes them."""
+    gradient is formed.  Only the precompute-off regime takes them.
+
+    ``mesh``: the ids are this rank's slice of a batch split over every
+    rank of it (module docstring)."""
     B, S = item_ids.shape
     dtype = torch_dtype(cfg.compute_dtype)
     use_cat = (cfg.use_category and item_dept is not None
                and item_cat is not None)
-    vocab = _use_vocab_precompute(cfg, B * S)
+    part = batch_part(mesh)
+    vocab = _use_vocab_precompute(cfg, B * S * (part[0] if part else 1))
 
     dmf = cfg.mf_dim
     if (user_rows is not None or item_rows is not None
@@ -244,24 +270,33 @@ def apply(
         item_mlp_t = layer_norm(params["mlp_norm"],
                                 params["item_emb"][:, dmf:])
         if use_cat:
+            rows, table_part = shard_rows("item_emb", params["item_emb"]), None
+            if rows is not None:           # this rank's rows of the table
+                R = rows.stop - rows.start
+                table_part = (item_dept.shape[0] // R, rows.start // R)
+                item_dept, item_cat = item_dept[rows], item_cat[rows]
             item_mlp_t = item_mlp_t + _hierarchy_table(
                 params["category"], item_dept, item_cat,
-                cfg.dropout, rng, deterministic, dtype)
+                cfg.dropout, rng, deterministic, dtype, table_part)
         item_t = torch.cat([
             layer_norm(params["mf_norm"], params["item_emb"][:, :dmf]),
             item_mlp_t,
         ], dim=-1)
         user_t = user_t.to(dtype)
         item_t = item_t.to(dtype)
-        user_full = embedding_lookup(user_t, user_ids)       # [B, 2d]
-        item_full = embedding_lookup(item_t, item_ids)       # [B, S, 2d]
+        user_full = embedding_lookup(user_t, user_ids,
+                                     "user_emb")             # [B, 2d]
+        item_full = embedding_lookup(item_t, item_ids,
+                                     "item_emb")             # [B, S, 2d]
         user_mf, user_mlp = user_full[:, :dmf], user_full[:, dmf:]
         item_mf, item_mlp = item_full[..., :dmf], item_full[..., dmf:]
     else:
         user_full = (user_rows if user_rows is not None
-                     else embedding_lookup(params["user_emb"], user_ids))
+                     else embedding_lookup(params["user_emb"], user_ids,
+                                           "user_emb"))
         item_full = (item_rows if item_rows is not None
-                     else embedding_lookup(params["item_emb"], item_ids))
+                     else embedding_lookup(params["item_emb"], item_ids,
+                                           "item_emb"))
         user_mf = layer_norm(params["mf_norm"], user_full[:, :dmf])
         user_mlp = layer_norm(params["mlp_norm"], user_full[:, dmf:])
         item_mf = layer_norm(params["mf_norm"], item_full[..., :dmf])
@@ -271,7 +306,7 @@ def apply(
             hier = _hierarchy_table(
                 params["category"], item_dept[ids].reshape(-1),
                 item_cat[ids].reshape(-1),
-                cfg.dropout, rng, deterministic, dtype)
+                cfg.dropout, rng, deterministic, dtype, part)
             item_mlp = item_mlp + hier.reshape(B, S, -1)
 
     # ---- sequence path (``advanced_ncf.py:367-420``)
@@ -288,26 +323,28 @@ def apply(
                 kv_t = torch.cat([dense(sa["k"], item_seq_t, dtype),
                                   dense(sa["v"], item_seq_t, dtype)],
                                  dim=-1).to(dtype)            # [V, 2dm]
-                kv = embedding_lookup(kv_t, hsafe)           # [B, H, 2dm]
+                kv = embedding_lookup(kv_t, hsafe,
+                                      "item_emb")            # [B, H, 2dm]
                 seq_vec = _sqa_core(
                     sa, dense(sa["q"], user_mlp, dtype), kv[..., :cfg.mlp_dim],
                     kv[..., cfg.mlp_dim:], cfg.num_heads, cfg.dropout, rng,
-                    deterministic, dtype, key_mask=hmask)
+                    deterministic, dtype, key_mask=hmask, part=part)
             else:
                 seq_src = (history_rows if history_rows is not None
-                           else embedding_lookup(params["item_emb"], hsafe))
+                           else embedding_lookup(params["item_emb"], hsafe,
+                                                 "item_emb"))
                 seq_emb = layer_norm(params["mlp_norm"], seq_src[..., dmf:])
                 if use_cat:
                     ids = hsafe.long()
                     seq_hier = _hierarchy_table(
                         params["category"], item_dept[ids].reshape(-1),
                         item_cat[ids].reshape(-1),
-                        cfg.dropout, rng, deterministic, dtype)
+                        cfg.dropout, rng, deterministic, dtype, part)
                     seq_emb = seq_emb + seq_hier.reshape(seq_emb.shape)
                 seq_vec = _single_query_attention(
                     params["sequence_attn"], user_mlp, seq_emb,
                     cfg.num_heads, cfg.dropout, rng, deterministic, dtype,
-                    key_mask=hmask)                          # [B, dm]
+                    key_mask=hmask, part=part)               # [B, dm]
         else:
             seq_vec = torch.zeros((B, cfg.mlp_dim), dtype=torch.float32,
                                   device=user_mlp.device)
@@ -329,13 +366,13 @@ def apply(
     if candidate_attention:
         attn = _single_query_attention(
             params["attn"], user_mlp, item_mlp, cfg.num_heads,
-            cfg.dropout, rng, deterministic, dtype)          # [B, dm]
+            cfg.dropout, rng, deterministic, dtype, part=part)  # [B, dm]
         parts = [attn.to(dtype)]
         if seq_vec is not None:
             parts.append(seq_vec.to(dtype))
         combined = torch.cat(parts + [t_vec.to(dtype)], dim=-1)
         mlp_vec = _tower(params["mlp"], combined, cfg, rng,
-                         deterministic, dtype)
+                         deterministic, dtype, mesh)
         mlp_pred = dense(params["mlp_out"], mlp_vec)          # [B, 1]
         mlp_pred = mlp_pred[:, None, :].expand(B, S, 1)
     else:
@@ -348,7 +385,7 @@ def apply(
                 B, S, cfg.mlp_dim).to(dtype))
         combined = torch.cat(parts + [t_b.to(dtype)], dim=-1)
         mlp_vec = _tower(params["mlp"], combined, cfg, rng,
-                         deterministic, dtype)
+                         deterministic, dtype, mesh)
         mlp_pred = dense(params["mlp_out"], mlp_vec)          # [B, S, 1]
 
     # ---- fusion: Linear(2,1), sigmoid deferred

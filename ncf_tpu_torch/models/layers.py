@@ -84,16 +84,35 @@ def dropout_mask(rng: torch.Generator, shape, rate: float,
     return torch.rand(shape, generator=rng, device=dev) < (1.0 - rate)
 
 
+def batch_part(mesh):
+    """``dropout``'s ``part`` for a rank's slice of a batch split over
+    every rank of ``mesh``, dcn-major (None without one)."""
+    return (mesh.size, mesh.rank) if mesh is not None and mesh.size > 1 \
+        else None
+
+
 def dropout(rng: Optional[torch.Generator], x: torch.Tensor, rate: float,
-            deterministic: bool) -> torch.Tensor:
+            deterministic: bool, part=None) -> torch.Tensor:
     """Inverted dropout (``layers.py:70-77``): kept elements scale by
     ``1 / (1 - rate)``, the dtype is kept.  The mask comes from ``rng``
     (a generator on ``x``'s device), so its bits are not ``jax.random``'s:
-    parity with the reference holds in distribution."""
+    parity with the reference holds in distribution.
+
+    ``part = (n, i)``: ``x`` is part ``i`` of ``n`` equal row blocks of a
+    whole (a rank's slice of a batch or its shard of a table).  The mask
+    is drawn for the whole from ``rng``, which every rank holds alike,
+    and block ``i`` of it is kept, so each row gets the mask it gets in
+    the one-rank run, as the reference's one mask over a global array."""
     if deterministic or rate <= 0.0 or rng is None:
         return x
     keep = 1.0 - rate
-    mask = dropout_mask(rng, x.shape, rate, x.device)
+    if part is None or part[0] == 1:
+        mask = dropout_mask(rng, x.shape, rate, x.device)
+    else:
+        n, i = part
+        R = x.shape[0]
+        mask = dropout_mask(rng, (n * R,) + tuple(x.shape[1:]), rate,
+                            x.device)[i * R:(i + 1) * R]
     return torch.where(mask, x / keep, torch.zeros_like(x)).to(x.dtype)
 
 
@@ -126,15 +145,16 @@ def mlp_tower(
     rng: Optional[Any] = None,
     deterministic: bool = True,
     dtype=None,
+    part=None,
 ) -> torch.Tensor:
     """[Linear -> ReLU -> LayerNorm -> Dropout] per layer; each layer's
     mask is the next draw from ``rng`` (the reference folds the layer
-    index into its key)."""
+    index into its key); ``part`` as ``dropout``'s."""
     for layer in layers:
         x = dense(layer["dense"], x, dtype)
         x = torch.relu(x)
         x = layer_norm(layer["norm"], x)
-        x = dropout(rng, x, dropout_rate, deterministic)
+        x = dropout(rng, x, dropout_rate, deterministic, part)
     return x
 
 

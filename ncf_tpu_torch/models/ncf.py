@@ -14,6 +14,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from ncf_tpu_torch.models.layers import (
+    batch_part,
     dense,
     dense_init,
     embedding_init,
@@ -56,22 +57,27 @@ def apply(
     deterministic: bool = True,
     rng: Optional[torch.Generator] = None,
     history: Optional[torch.Tensor] = None,  # unused; API parity
+    mesh=None,
 ) -> torch.Tensor:
-    """Logits [B, S].  Training-mode dropout masks come from ``rng``."""
+    """Logits [B, S].  Training-mode dropout masks come from ``rng``.
+    Each lookup names its table for the exchange's routing.  ``mesh``:
+    the ids are this rank's slice of a batch split over it, and each
+    dropout mask is this rank's rows of the whole batch's."""
     del temporal, item_dept, item_cat, candidate_attention, history
     dtype = torch_dtype(cfg.compute_dtype)
     B, S = item_ids.shape
 
-    u_gmf = embedding_lookup(params["gmf_user"], user_ids)[:, None, :]
-    i_gmf = embedding_lookup(params["gmf_item"], item_ids)
+    u_gmf = embedding_lookup(params["gmf_user"], user_ids,
+                             "gmf_user")[:, None, :]
+    i_gmf = embedding_lookup(params["gmf_item"], item_ids, "gmf_item")
     gmf_vec = u_gmf * i_gmf                                    # [B, S, dmf]
 
-    u_mlp = embedding_lookup(params["mlp_user"], user_ids)[:, None, :].expand(
-        B, S, cfg.mlp_dim)
-    i_mlp = embedding_lookup(params["mlp_item"], item_ids)
+    u_mlp = embedding_lookup(params["mlp_user"], user_ids,
+                             "mlp_user")[:, None, :].expand(B, S, cfg.mlp_dim)
+    i_mlp = embedding_lookup(params["mlp_item"], item_ids, "mlp_item")
     mlp_in = torch.cat([u_mlp, i_mlp], dim=-1).to(dtype)
     mlp_vec = mlp_tower(params["mlp"], mlp_in, cfg.dropout, rng,
-                        deterministic, dtype)
+                        deterministic, dtype, batch_part(mesh))
 
     fused = torch.cat([gmf_vec.to(torch.float32),
                        mlp_vec.to(torch.float32)], dim=-1)
@@ -80,15 +86,15 @@ def apply(
 
 def get_user_embeddings(params: Params, user_ids: torch.Tensor):
     """The GMF half as the 'mf' vector, the MLP half as 'mlp'."""
-    return {"mf": embedding_lookup(params["gmf_user"], user_ids),
-            "mlp": embedding_lookup(params["mlp_user"], user_ids)}
+    return {"mf": embedding_lookup(params["gmf_user"], user_ids, "gmf_user"),
+            "mlp": embedding_lookup(params["mlp_user"], user_ids, "mlp_user")}
 
 
 def get_product_embeddings(params: Params, cfg: ModelConfig,
                            item_ids: torch.Tensor, item_dept=None,
                            item_cat=None):
-    return {"mf": embedding_lookup(params["gmf_item"], item_ids),
-            "mlp": embedding_lookup(params["mlp_item"], item_ids)}
+    return {"mf": embedding_lookup(params["gmf_item"], item_ids, "gmf_item"),
+            "mlp": embedding_lookup(params["mlp_item"], item_ids, "mlp_item")}
 
 
 def score_candidates(

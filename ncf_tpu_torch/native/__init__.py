@@ -5,7 +5,11 @@ source (``data_loader.cpp``, copied), built with the flags of
 ``ncf_tpu/native/Makefile`` into ``ncf_tpu_torch/native/_build/``
 (git-ignored) at first use, never at import.  Every entry point has the
 same NumPy fallback as the JAX package's, so where both packages find a
-compiler (or neither does) they shuffle and sample identically.
+compiler (or neither does) they shuffle and sample identically.  Processes
+that load it at once (the ranks of a mesh) build it once: the first takes
+a lock file and compiles into a temporary name renamed into place, the
+others wait for the lock and load its library (``built_here`` says which
+one compiled).
 """
 
 from __future__ import annotations
@@ -29,20 +33,33 @@ CXXFLAGS = ["-O3", "-march=native", "-std=c++17", "-fPIC", "-Wall"]
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 _tried = False
+built_here = False              # whether this process compiled the library
 
 
 def _build() -> bool:
+    """Build the library unless another process has (True when it is
+    there to load)."""
+    global built_here
+    from ncf_tpu_torch.ops._kernels import file_lock
+
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{_SO}.{os.getpid()}.tmp"
-    cmd = [os.environ.get("CXX", "g++"), *CXXFLAGS, "-shared", "-o", tmp,
-           _SRC]
-    try:
-        subprocess.run(cmd, check=True, capture_output=True, timeout=120)
-    except (OSError, subprocess.SubprocessError) as e:
-        log.info("native build unavailable: %s", e)
-        return False
-    os.replace(tmp, _SO)        # atomic: a concurrent loader never sees half
-    return True
+    with file_lock(os.path.join(BUILD_DIR, ".lock")):
+        if os.path.exists(_SO):     # built while this process waited
+            return True
+        tmp = f"{_SO}.{os.getpid()}.{threading.get_ident()}.tmp"
+        cmd = [os.environ.get("CXX", "g++"), *CXXFLAGS, "-shared", "-o",
+               tmp, _SRC]
+        try:
+            subprocess.run(cmd, check=True, capture_output=True,
+                           timeout=120)
+        except (OSError, subprocess.SubprocessError) as e:
+            log.info("native build unavailable: %s", e)
+            if os.path.exists(tmp):
+                os.remove(tmp)
+            return False
+        os.replace(tmp, _SO)    # atomic: a loader never sees half a file
+        built_here = True
+        return True
 
 
 def get_lib() -> Optional[ctypes.CDLL]:

@@ -15,7 +15,28 @@ from ncf_tpu_torch.ops.topk import (
     topk_scores_xla,
 )
 
+
+
+def launch_counters():
+    """Every kernel wrapper's launch counter, by kernel name."""
+    from ncf_tpu_torch.ops import (gather, sampler, scatter, temporal_sum,
+                                   topk, tower)
+
+    return {"topk_scores_streaming": topk.topk_scores_streaming.launches,
+            "fused_tower_fwd": tower.fused_tower.fwd_launches,
+            "fused_tower_bwd": tower.fused_tower.bwd_launches,
+            "tree_sample_negatives": sampler.tree_sample_negatives.launches,
+            "onehot_scatter_add": scatter.onehot_scatter_add.launches,
+            "fused_lookup_sum": temporal_sum.fused_lookup_sum.launches,
+            "topk_scores_streaming_int8":
+                topk.topk_scores_streaming_int8.launches,
+            "gather_rows": gather.gather_rows.launches,
+            "topk_scores_pallas": topk.topk_scores_pallas.launches,
+            "topk_scores_segmented": topk.topk_scores_segmented.launches}
+
+
 __all__ = [
+    "launch_counters",
     "embedding_lookup",
     "PreparedItems",
     "PreparedItemsInt8",

@@ -7,12 +7,18 @@ PyTorch headers, so a build takes seconds).  Libraries go to
 carries a hash of the source, the shared headers and the flags, so an
 edited source rebuilds and an unchanged one is reused.  Nothing is built at import time: the first
 call that needs a kernel builds it, and ``build_all`` builds every source
-at once, one ``nvcc`` per source, all started together.
+at once, one ``nvcc`` per source, all started together.  Several
+processes may build at once (the ranks of a mesh): each writes its own
+temporary file and renames it into place, and a lock file
+(``file_lock``) makes the later processes wait and reuse the first one's
+libraries instead of compiling them again.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -57,12 +63,24 @@ def _target(name: str) -> Tuple[str, str]:
     return src, os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:16]}.so")
 
 
+@contextlib.contextmanager
+def file_lock(path: str):
+    """An exclusive advisory lock on ``path`` across processes."""
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "a") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
 def _start_build(name: str):
     src, lib = _target(name)
     if os.path.exists(lib):
         return None
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{lib}.{os.getpid()}.tmp"
+    tmp = f"{lib}.{os.getpid()}.{threading.get_ident()}.tmp"
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, src]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
@@ -81,7 +99,8 @@ def _finish_build(job) -> None:
 def build_all(names: Sequence[str] = SOURCES) -> float:
     """Build every named source in parallel; returns the wall seconds."""
     t0 = time.perf_counter()
-    with _lock:
+    with _lock, file_lock(os.path.join(BUILD_DIR, ".lock")):
+        # under the lock: what another process built meanwhile is reused
         jobs = [j for j in (_start_build(n) for n in names) if j is not None]
         try:
             for job in jobs:

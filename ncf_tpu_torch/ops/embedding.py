@@ -17,6 +17,17 @@ the table's dtype; B2 always adds in f32.
 Under ``"pallas"`` every lookup goes through ``ops/gather.py`` (B7) and
 its backward is a scatter-add in the table's dtype, as the reference's
 ``_IMPL == "pallas"`` branch wins before its scatter routing.
+
+Under a mesh, ``set_exchange`` routes the lookups of row-sharded tables
+through the explicit all-to-all exchange
+(``parallel/embedding_sharding.py``), as the reference's does
+(``embedding.py:36-60``, ``:151-156``).  The reference recognizes a
+sharded table by its global row count; a rank here holds ``N / E`` rows,
+which a replicated small table may have too.  So a lookup names the
+table it reads (``key``: the param it is, or the param a derived table
+was computed from row by row), and it is routed only when that name is
+registered and the table holds that name's ``N / E`` rows.  Routed
+lookups leave the dcn sum of their gradient to the training step.
 """
 
 from __future__ import annotations
@@ -30,6 +41,41 @@ from ncf_tpu_torch.ops.scatter import (onehot_scatter_add, scatter_fits,
 _IMPL = "xla"
 _SCATTER_IMPL = "auto"
 _SCATTER_MODE = "split"
+_EXCHANGE = None          # explicit all-to-all routing, see set_exchange
+
+
+def set_exchange(mesh, rows, capacity_factor: float = 0.0) -> None:
+    """Route the lookups of row-sharded tables through the explicit
+    exchange.  ``rows``: ``{table key: global rows}`` of the tables that
+    are row-sharded over ``mesh``'s ici axis; ``capacity_factor <= 0``
+    is exact (skew-proof) bucket capacity."""
+    global _EXCHANGE
+    _EXCHANGE = {"mesh": mesh, "rows": {str(k): int(v)
+                                        for k, v in dict(rows).items()},
+                 "capacity_factor": capacity_factor}
+
+
+def clear_exchange() -> None:
+    global _EXCHANGE
+    _EXCHANGE = None
+
+
+def get_exchange():
+    return _EXCHANGE
+
+
+def shard_rows(key, table: torch.Tensor):
+    """The global rows (a slice) this rank's ``table`` holds when it is
+    a registered shard of ``key``, else None."""
+    ex = _EXCHANGE
+    if ex is None or key not in ex["rows"] or table.dim() != 2:
+        return None
+    mesh = ex["mesh"]
+    E = mesh.shape["ici"]
+    R = table.shape[0]
+    if E == 1 or R * E != ex["rows"][key]:
+        return None
+    return slice(mesh.ici_index * R, (mesh.ici_index + 1) * R)
 
 
 def set_impl(impl: str) -> None:
@@ -92,8 +138,16 @@ class _Lookup(torch.autograd.Function):
         return grad.to(ctx.table_dtype), None
 
 
-def embedding_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """Gather rows: table [N, D], ids int[...]  ->  [..., D]."""
+def embedding_lookup(table: torch.Tensor, ids: torch.Tensor,
+                     key=None) -> torch.Tensor:
+    """Gather rows: table [N, D], ids int[...]  ->  [..., D].  ``key``
+    names the table for the exchange's routing (``set_exchange``)."""
+    if key is not None and shard_rows(key, table) is not None:
+        from ncf_tpu_torch.parallel.embedding_sharding import exchange_lookup
+
+        return exchange_lookup(_EXCHANGE["mesh"], table, ids,
+                               _EXCHANGE["capacity_factor"],
+                               reduce_dcn=False)
     if _IMPL == "pallas":
         return pallas_embedding_lookup(table, ids)
     if not (torch.is_grad_enabled() and table.requires_grad):

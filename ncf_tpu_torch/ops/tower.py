@@ -20,7 +20,12 @@ Dropout masks come from Philox4x32-10 (``philox4x32``) with key
 ``min(int(keep * 2**32), 2**32 - 1)``.  The seed is one int32 drawn from
 the caller's ``torch.Generator`` (the reference draws it from its key), so
 the kernel and ``fused_tower_ref`` agree mask for mask; neither agrees
-with the TPU's own generator.
+with the TPU's own generator.  Under a mesh (``mesh=``) each rank runs
+the kernels on its own rows and adds its linear rank, dcn-major, to the
+seed it drew from the replicated generator, as the reference's
+``_dev_seed`` folds the device's mesh index in; the backward recomputes
+with the same seed.  The parameter gradients are this rank's part: the
+training step sums them over the ranks with the other dense gradients.
 
 ``fused_tower`` launches ``csrc/fused_tower.cu`` for CUDA tensors (or
 raises) and runs the plain version for CPU tensors; ``fused_tower_ref``
@@ -299,13 +304,15 @@ class _Tower(torch.autograd.Function):
                 *(g.to(p.dtype) for g, p in zip(grads, flat)))
 
 
-def _run(layers, x, dropout_rate, rng, deterministic, kernel):
+def _run(layers, x, dropout_rate, rng, deterministic, kernel, mesh=None):
     use_dropout = (not deterministic) and dropout_rate > 0.0 and rng is not None
     if use_dropout:
         if not isinstance(rng, torch.Generator):
             raise TypeError(f"dropout needs a torch.Generator, got {type(rng)}")
         seed = torch.randint(0, 2 ** 31 - 1, (1,), generator=rng,
                              device=rng.device, dtype=torch.int32).to(x.device)
+        if mesh is not None:
+            seed = seed + mesh.rank       # the rank's own dropout stream
     else:
         seed = torch.zeros((1,), dtype=torch.int32, device=x.device)
     lead = x.shape[:-1]
@@ -319,15 +326,17 @@ def _run(layers, x, dropout_rate, rng, deterministic, kernel):
 
 def fused_tower(layers: List[dict], x: torch.Tensor, dropout_rate: float = 0.0,
                 rng: Optional[torch.Generator] = None,
-                deterministic: bool = True) -> torch.Tensor:
+                deterministic: bool = True, mesh=None) -> torch.Tensor:
     """Drop-in fused replacement for ``mlp_tower``: ``x [..., D0]`` ->
     f32 ``[..., D_L]``, differentiable.  CUDA tensors launch B4f (and B4b
     in the backward) or raise; CPU tensors run the plain version.  Each
-    launch adds one to ``fused_tower.fwd_launches`` or ``.bwd_launches``."""
+    launch adds one to ``fused_tower.fwd_launches`` or ``.bwd_launches``.
+    ``mesh``: this rank's rows of a batch split over a mesh (its rank
+    folded into the dropout seed)."""
     if x.device.type not in ("cpu", "cuda"):
         raise RuntimeError(f"no tower kernel for {x.device}")
     return _run(layers, x, dropout_rate, rng, deterministic,
-                x.device.type == "cuda")
+                x.device.type == "cuda", mesh)
 
 
 fused_tower.fwd_launches = _kernels.LaunchCounter()
@@ -337,7 +346,7 @@ fused_tower.bwd_launches = _kernels.LaunchCounter()
 def fused_tower_ref(layers: List[dict], x: torch.Tensor,
                     dropout_rate: float = 0.0,
                     rng: Optional[torch.Generator] = None,
-                    deterministic: bool = True) -> torch.Tensor:
+                    deterministic: bool = True, mesh=None) -> torch.Tensor:
     """The plain version of ``fused_tower`` (same arguments, same masks
     for the same generator state), on any device."""
-    return _run(layers, x, dropout_rate, rng, deterministic, False)
+    return _run(layers, x, dropout_rate, rng, deterministic, False, mesh)

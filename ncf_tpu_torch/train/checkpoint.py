@@ -13,6 +13,17 @@ optax's names (``named_opt_state``), so that the JAX package's ``Trainer``
 reads the port's Adam moments, table-optimizer states and sparse-path
 accumulators, and the port reads the reference's.  The
 orbax backend is not supported: it is a JAX library.
+
+Under a mesh (``save(..., mesh=, shardings=)``) each rank of dcn replica
+0 writes its rows of every row-sharded leaf to a file of its own; after a
+barrier the primary rank writes the replicated leaves and the manifest,
+whose ``"kind": "sharded"`` entries list each shard's file and its index
+ranges in the global shape, as the JAX package's multi-host save does;
+a last barrier lets no rank go on before the checkpoint is whole.
+``restore(..., mesh=, shardings=)`` reads each rank's rows of a sharded
+leaf from whatever layout the checkpoint has (dense, or sharded over
+another number of ranks), so a checkpoint moves across topologies, and
+``consolidate`` and the JAX package's ``restore`` read it.
 """
 
 from __future__ import annotations
@@ -147,25 +158,55 @@ def save(
     backend: str = "native",
     async_save: bool = False,
     extra: Optional[Dict[str, Any]] = None,
+    mesh=None,
+    shardings: Any = None,
 ) -> str:
     """Write ``tree`` under ``directory/ckpt_{step:08d}``: one ``.npy`` a
     leaf (tensors copied to the host; bf16 widened to f32, which is
     exact; Python numbers as ``scalar`` entries) and the manifest.
-    Returns the checkpoint directory."""
+    Returns the checkpoint directory.  Under ``mesh``, ``tree`` holds
+    this rank's parts and ``shardings`` its spec tree
+    (``parallel/mesh.py``); every rank calls ``save``."""
     if backend != "native" or async_save:
         raise NotImplementedError(
             f"checkpoint backend {backend!r} is not supported; use native")
-    del process_index                       # one process: it writes all
+    ranks = mesh is not None and mesh.size > 1
+    if process_index is None:
+        process_index = mesh.rank if ranks else 0
     ckpt_dir = os.path.join(directory, f"ckpt_{step:08d}")
     os.makedirs(ckpt_dir, exist_ok=True)
+    specs = dict(_leaves_with_path(shardings)) if shardings is not None \
+        else {}
     leaf_meta: Dict[str, Dict[str, Any]] = {}
+    dense = []
     for path_s, leaf in _leaves_with_path(tree):
         if not hasattr(leaf, "shape"):      # a Python number
             leaf_meta[path_s] = {"kind": "scalar", "value": float(leaf)}
             continue
+        if ranks and specs.get(path_s) == "ici":
+            E, i = mesh.shape["ici"], mesh.ici_index
+            R = leaf.shape[0]
+            shape = [R * E] + list(leaf.shape[1:])
+            if mesh.dcn_index == 0:         # the dcn replicas hold the same
+                arr = _to_numpy(leaf)
+                np.save(os.path.join(ckpt_dir, _shard_file(path_s, i)), arr)
+            dtype = ("float32" if leaf.dtype == torch.bfloat16
+                     else str(_np_dtype(leaf.dtype)))
+            leaf_meta[path_s] = {
+                "kind": "sharded", "global_shape": shape, "dtype": dtype,
+                "shards": [{"file": _shard_file(path_s, j),
+                            "index": [[j * R, (j + 1) * R]]
+                            + [[0, d] for d in shape[1:]]}
+                           for j in range(E)]}
+            continue
+        dense.append((path_s, leaf))
+    if ranks:
+        mesh.barrier()                      # every shard written
+    for path_s, leaf in dense:
         arr = _to_numpy(leaf)
         fname = _leaf_filename(path_s)
-        np.save(os.path.join(ckpt_dir, fname), arr)
+        if process_index == 0:
+            np.save(os.path.join(ckpt_dir, fname), arr)
         leaf_meta[path_s] = {"kind": "dense", "file": fname,
                              "dtype": str(arr.dtype)}
     manifest = {
@@ -177,20 +218,44 @@ def save(
         "leaves": leaf_meta,
         "format_version": 1,
     }
-    with open(os.path.join(ckpt_dir, MANIFEST), "w") as f:
-        json.dump(manifest, f, indent=1)
+    if process_index == 0:
+        with open(os.path.join(ckpt_dir, MANIFEST), "w") as f:
+            json.dump(manifest, f, indent=1)
+    if ranks:
+        mesh.barrier()                      # the manifest is written
     log.info("checkpoint saved: %s", ckpt_dir)
     return ckpt_dir
 
 
-def _load_leaf(ckpt_dir: str, meta: Dict[str, Any]) -> np.ndarray:
+def _shard_file(path_s: str, shard: int) -> str:
+    return _leaf_filename(f"{path_s}.shard{shard}")
+
+
+def _np_dtype(dt: torch.dtype):
+    return torch.empty((), dtype=dt).numpy().dtype
+
+
+def _load_leaf(ckpt_dir: str, meta: Dict[str, Any],
+               rows: Optional[slice] = None) -> np.ndarray:
+    """A leaf, or only its ``rows``, from a dense or sharded entry (the
+    shard files are mapped, so a rank reads the rows it keeps)."""
     if meta["kind"] == "sharded":
-        arr = np.zeros(meta["global_shape"], dtype=np.dtype(meta["dtype"]))
+        shape = list(meta["global_shape"])
+        lo, hi = (0, shape[0]) if rows is None else (rows.start, rows.stop)
+        arr = np.zeros([hi - lo] + shape[1:], dtype=np.dtype(meta["dtype"]))
         for sh in meta["shards"]:
-            sl = tuple(slice(a, b) for a, b in sh["index"])
-            arr[sl] = np.load(os.path.join(ckpt_dir, sh["file"]))
+            (a, b), rest = sh["index"][0], sh["index"][1:]
+            s, e = max(a, lo), min(b, hi)
+            if s >= e:
+                continue
+            part = np.load(os.path.join(ckpt_dir, sh["file"]), mmap_mode="r")
+            arr[(slice(s - lo, e - lo),) + tuple(
+                slice(x, y) for x, y in rest)] = part[s - a:e - a]
         return arr
-    arr = np.load(os.path.join(ckpt_dir, meta["file"]))
+    arr = np.load(os.path.join(ckpt_dir, meta["file"]),
+                  mmap_mode=None if rows is None else "r")
+    if rows is not None:
+        arr = np.array(arr[rows])
     if arr.dtype.kind == "V" and arr.dtype.itemsize == 2:
         # a bf16 leaf of the JAX package (``.npy`` keeps it as 2-byte
         # voids): its bits are the high half of an f32, widened exactly
@@ -198,17 +263,24 @@ def _load_leaf(ckpt_dir: str, meta: Dict[str, Any]) -> np.ndarray:
     return arr
 
 
-def restore(ckpt_dir: str, template: Any,
-            device: DeviceLike = None) -> Tuple[Any, Dict[str, Any]]:
+def restore(ckpt_dir: str, template: Any, device: DeviceLike = None,
+            mesh=None, shardings: Any = None
+            ) -> Tuple[Any, Dict[str, Any]]:
     """Load a checkpoint into the structure of ``template`` on ``device``
     (default ``cuda``).  Returns (tree, manifest).  Shape mismatches
-    against the template raise; leaves take the template's dtype."""
+    against the template raise; leaves take the template's dtype.  Under
+    ``mesh`` the template holds this rank's parts and ``shardings`` its
+    spec tree: a sharded leaf is read as this rank's rows of the global
+    leaf, whatever layout the checkpoint has."""
     dev = resolve_device(device)
     with open(os.path.join(ckpt_dir, MANIFEST)) as f:
         manifest = json.load(f)
     if manifest.get("backend") == "orbax":
         raise NotImplementedError("orbax checkpoints are not supported")
     leaf_meta = manifest["leaves"]
+    specs = dict(_leaves_with_path(shardings)) if shardings is not None \
+        else {}
+    E = 1 if mesh is None else mesh.shape["ici"]
 
     loaded: Dict[str, Any] = {}
     for path_s, leaf in _leaves_with_path(template):
@@ -220,8 +292,18 @@ def restore(ckpt_dir: str, template: Any,
                 torch.tensor(meta["value"], dtype=leaf.dtype, device=dev)
                 if isinstance(leaf, torch.Tensor) else type(leaf)(meta["value"]))
             continue
-        arr = _load_leaf(ckpt_dir, meta)
         shape = tuple(leaf.shape)
+        rows = None
+        if E > 1 and specs.get(path_s) == "ici":
+            i, R = mesh.ici_index, shape[0]
+            rows = slice(i * R, (i + 1) * R)
+            glob = meta.get("global_shape") or list(np.load(
+                os.path.join(ckpt_dir, meta["file"]), mmap_mode="r").shape)
+            if tuple(glob) != (R * E,) + shape[1:]:
+                raise ValueError(
+                    f"shape mismatch for {path_s}: checkpoint "
+                    f"{tuple(glob)} vs template {(R * E,) + shape[1:]}")
+        arr = _load_leaf(ckpt_dir, meta, rows)
         if tuple(arr.shape) != shape:
             raise ValueError(
                 f"shape mismatch for {path_s}: checkpoint {arr.shape} "

@@ -148,10 +148,18 @@ def select(tree: Any, label: str) -> Any:
     return {} if out is _NONE else out
 
 
-def _clip(grads: List[torch.Tensor], clip_norm: float) -> None:
-    """optax's ``clip_by_global_norm`` in place over ``grads``."""
-    norm = torch.linalg.vector_norm(torch.stack(
+def global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
+    """optax's ``global_norm``: the f32 norm of every leaf together."""
+    return torch.linalg.vector_norm(torch.stack(
         [n.to(torch.float32) for n in torch._foreach_norm(grads)]))
+
+
+def _clip(grads: List[torch.Tensor], clip_norm: float,
+          norm_fn=None) -> None:
+    """optax's ``clip_by_global_norm`` in place over ``grads``;
+    ``norm_fn(grads)`` gives the norm where the leaves are split over a
+    mesh (``train/step.py``)."""
+    norm = (norm_fn or global_norm)(grads)
     scale = torch.where(norm < clip_norm, torch.ones_like(norm),
                         clip_norm / norm)
     for g in grads:
@@ -208,14 +216,15 @@ class Adam:
 
     @torch.no_grad()
     def update(self, params: Any, grads: List[torch.Tensor],
-               state: Dict[str, Any]) -> Dict[str, Any]:
+               state: Dict[str, Any], norm_fn=None) -> Dict[str, Any]:
         """One step: ``grads`` in the order of ``tree_leaves(params)``
         (consumed); params, ``mu`` and ``nu`` are updated in place.
-        Returns the state with the incremented count."""
+        Returns the state with the incremented count.  ``norm_fn`` gives
+        the clip's global norm of ``grads`` under a mesh."""
         ps = tree_leaves(params)
         count = state["count"]
         if self.clip_norm > 0:
-            _clip(grads, self.clip_norm)
+            _clip(grads, self.clip_norm, norm_fn)
         if self.weight_decay > 0:
             torch._foreach_add_(grads, ps, alpha=self.weight_decay)
         inc = count + 1
@@ -312,7 +321,7 @@ class TableOptimizer:
 
     @torch.no_grad()
     def update(self, params: Any, grads: List[torch.Tensor],
-               state: Dict[str, Any]) -> Dict[str, Any]:
+               state: Dict[str, Any], norm_fn=None) -> Dict[str, Any]:
         """``Adam.update``'s contract over this chain."""
         labels = tree_leaves(embedding_labels(params))
         ps = tree_leaves(params)
@@ -320,7 +329,7 @@ class TableOptimizer:
         count = state["count"]
         inc = count + 1
         if self.clip_norm > 0:
-            _clip(grads, self.clip_norm)
+            _clip(grads, self.clip_norm, norm_fn)
         if self.weight_decay > 0:
             # the table modes decay the dense params only; Adam tables
             # with their own learning rate decay with them

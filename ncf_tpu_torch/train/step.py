@@ -29,11 +29,39 @@ rows, clips over the dense gradients and the combined totals together,
 and updates the touched rows with rowwise Adagrad (``train/sparse.py``)
 and the dense params with the dense optimizer.  The history's rows are
 more touched rows of the item table, as in the reference.
+
+Every step here runs over a mesh (``mesh=``, ``parallel/mesh.py``; given
+none, the ``(1, 1)`` mesh of this process, ``local_mesh``), takes the
+GLOBAL batch, as the reference's jitted step takes a global array laid
+out over the devices, and runs SPMD on every rank:
+
+- the negatives are drawn for the whole batch from the generator, which
+  every rank seeds alike (the reference replicates its key), and each
+  rank keeps its contiguous slice of the rows, dcn-major: the stratified
+  sampler's pool is the global one, so an N-rank step draws what the
+  one-rank step draws;
+- ``apply`` runs on the rank's rows (given ``mesh``, it picks the
+  vocabulary branch the whole batch would and keeps the rank's rows of
+  each dropout mask drawn for the whole batch), the lookups of
+  row-sharded tables going through the exchange
+  (``ops/embedding.py::set_exchange``);
+- each rank's loss is scaled by ``local_B / global_B``, so the gradients
+  summed over the ranks are those of the global mean: replicated leaves
+  are summed over every rank, a table shard's over its dcn replicas
+  (``shardings`` says which leaf is which);
+- the clip's norm is the replicated leaves' plus the shards' summed
+  over ici (``norm_fn``);
+- the sparse step routes its row gradients to their owners
+  (``train/sparse_sharded.py``);
+- the metrics are the global batch's (one ``all_reduce``).
+
+On the ``(1, 1)`` mesh every slice is the whole batch, the scale is 1 and
+no collective runs, so the one-process step is this same code.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict
 
 import numpy as np
 import torch
@@ -43,9 +71,12 @@ from ncf_tpu_torch.convert import tree_leaves, tree_map
 from ncf_tpu_torch.data.sampler import (sample_negatives,
                                         sample_negatives_stratified)
 from ncf_tpu_torch.evals.metrics import accuracy_stats
-from ncf_tpu_torch.train.optim import Adam
-from ncf_tpu_torch.train.sparse import (combine_duplicate_rows,
-                                        sparse_rowwise_adagrad_apply)
+from ncf_tpu_torch.parallel.mesh import (DCN_AXIS, ICI_AXIS, SHARDED,
+                                         WORLD, local_mesh, local_rows)
+from ncf_tpu_torch.parallel.embedding_sharding import exchange_gather
+from ncf_tpu_torch.train.optim import Adam, global_norm
+from ncf_tpu_torch.train.sparse_sharded import (
+    sharded_sparse_rowwise_adagrad_update)
 from ncf_tpu_torch.utils.config import Config
 from ncf_tpu_torch.utils.device import DeviceLike, resolve_device
 
@@ -156,21 +187,106 @@ def _track(tree: Any):
     return leaves, tree_map(lambda _: next(it), tree)
 
 
-def _grads(loss_fn, params, *args, rows=None):
+def _grads(loss_fn, params, *args, rows=None, scale=1.0, **kw):
     """(loss, logits, targets) and the gradient of every param leaf, in
     ``tree_leaves`` order (zeros where the loss does not reach a leaf,
     as ``jax.grad`` gives), then of each of ``rows`` (``apply``'s
     injected rows, by name; ``params`` then holds no table they stand
-    in for)."""
+    in for).  The gradients are those of ``scale * loss``."""
     leaves, tracked = _track(params)
     rows = {k: r.detach().requires_grad_(True) for k, r in (rows or {}).items()}
     with torch.enable_grad():
-        loss, logits, targets = loss_fn(tracked, *args, **rows)
-        grads = torch.autograd.grad(loss, leaves + list(rows.values()),
+        loss, logits, targets = loss_fn(tracked, *args, **kw, **rows)
+        grads = torch.autograd.grad(loss if scale == 1.0 else loss * scale,
+                                    leaves + list(rows.values()),
                                     allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g
              for p, g in zip(leaves, grads)] + list(grads[len(leaves):])
     return loss.detach(), logits.detach(), targets, grads
+
+
+class _MeshPlan:
+    """What a step needs of the mesh (``local_mesh()`` when None): which
+    leaves are table shards, the batch slicing, the loss scale and the
+    reductions."""
+
+    def __init__(self, mesh=None, shardings=None):
+        self.mesh = mesh = local_mesh() if mesh is None else mesh
+        self.world = mesh.size
+        self.sharded = ([s == SHARDED for s in tree_leaves(shardings)]
+                        if shardings is not None else None)
+
+    def slice_batch(self, batch, drawn):
+        """This rank's rows of the global batch and of its draws."""
+        B = batch["item_ids"].shape[0]
+        if B % self.world:
+            raise ValueError(f"global batch {B} must divide the "
+                             f"{self.world} ranks of the mesh")
+        local = lambda x: None if x is None else local_rows(x, self.mesh)
+        items, temporal, history = drawn
+        return ({k: local(v) for k, v in batch.items()},
+                (local(items),
+                 None if temporal is None
+                 else {k: local(v) for k, v in temporal.items()},
+                 local(history)))
+
+    @property
+    def scale(self) -> float:
+        return 1.0 / self.world
+
+    def _is_sharded(self, i: int) -> bool:
+        return self.sharded is not None and self.sharded[i]
+
+    @torch.no_grad()
+    def reduce_grads(self, grads):
+        """Each leaf's gradient summed over the ranks that hold it: the
+        replicated ones over the world (one flat buffer), the shards over
+        their dcn replicas.  Outside a process group they are whole."""
+        if not self.mesh.distributed:
+            return grads
+        rep = [i for i in range(len(grads)) if not self._is_sharded(i)]
+        if rep:
+            flat = torch.cat([grads[i].reshape(-1).to(torch.float32)
+                              for i in rep])
+            flat = self.mesh.all_reduce(flat, WORLD)
+            off = 0
+            for i in rep:
+                n = grads[i].numel()
+                grads[i] = flat[off:off + n].view(grads[i].shape).to(
+                    grads[i].dtype)
+                off += n
+        for i in range(len(grads)):
+            if self._is_sharded(i):
+                grads[i] = self.mesh.all_reduce(grads[i], DCN_AXIS)
+        return grads
+
+    def norm_fn(self):
+        """The clip's global norm, or None where no leaf is a shard (then
+        the optimizer's own, the same as without a mesh)."""
+        if self.sharded is None or not any(self.sharded):
+            return None
+
+        def norm(grads):
+            rep = [g for i, g in enumerate(grads) if not self.sharded[i]]
+            shd = [g for i, g in enumerate(grads) if self.sharded[i]]
+            sq = global_norm(shd).square()
+            sq = self.mesh.all_reduce(sq, ICI_AXIS)
+            if rep:
+                sq = sq + global_norm(rep).square()
+            return sq.sqrt()
+
+        return norm
+
+    @torch.no_grad()
+    def metrics(self, loss, logits, targets):
+        """The global batch's loss and accuracy stats."""
+        local = {"loss": loss, **accuracy_stats(logits, targets)}
+        keys = list(local)
+        v = torch.stack([local[k].to(torch.float32) for k in keys])
+        if self.world > 1:
+            v = v * self.scale
+        v = self.mesh.all_reduce(v, WORLD)
+        return {k: v[i] for i, k in enumerate(keys)}
 
 
 def make_train_step(
@@ -182,6 +298,8 @@ def make_train_step(
     item_cat=None,
     user_history=None,             # int [U, H] padded with -1
     device: DeviceLike = None,
+    mesh=None,
+    shardings=None,
 ) -> Callable:
     """Returns ``train_step(params, opt_state, gen, batch, negatives=None)
     -> (params, opt_state, gen, metrics)``.
@@ -191,19 +309,28 @@ def make_train_step(
     NumPy arrays or tensors; they move to the step's device
     (``cuda`` unless ``device`` says otherwise).  ``gen`` is a
     ``torch.Generator`` on that device.  ``metrics``: loss, accuracy,
-    pos_accuracy and neg_accuracy as device scalars."""
+    pos_accuracy and neg_accuracy as device scalars.
+
+    ``mesh``: the step runs SPMD over it (module docstring); ``batch``
+    and ``negatives`` are the global batch's, ``params`` and
+    ``opt_state`` this rank's parts, ``shardings`` the params' spec tree
+    (``parallel/mesh.py::param_shardings``; None: all replicated)."""
     dev = resolve_device(device)
     loss_fn = _make_loss_fn(model, cfg)
     consts = _consts(dev, neg_cdf, item_dept, item_cat, user_history)
+    plan = _MeshPlan(mesh, shardings)
 
     def train_step(params, opt_state, gen, batch, negatives=None):
         batch = _batch_to(batch, dev)
+        drawn = loss_fn.inputs(batch, gen, consts, negatives)
+        lbatch, ldrawn = plan.slice_batch(batch, drawn)
         loss, logits, targets, grads = _grads(
-            loss_fn, params, batch, gen, consts, negatives)
-        opt_state = optimizer.update(params, grads, opt_state)
-        with torch.no_grad():
-            metrics = {"loss": loss, **accuracy_stats(logits, targets)}
-        return params, opt_state, gen, metrics
+            loss_fn, params, lbatch, gen, consts, None, ldrawn,
+            scale=plan.scale, mesh=plan.mesh)
+        grads = plan.reduce_grads(grads)
+        opt_state = optimizer.update(params, grads, opt_state,
+                                     norm_fn=plan.norm_fn())
+        return params, opt_state, gen, plan.metrics(loss, logits, targets)
 
     return train_step
 
@@ -236,13 +363,16 @@ def make_multi_train_step(
     item_cat=None,
     user_history=None,
     device: DeviceLike = None,
+    mesh=None,
+    shardings=None,
 ) -> Callable:
     """K steps per call: ``multi_train_step(params, opt_state, gen,
     batches, negatives=None)`` where every entry of ``batches`` is stacked
     ``[K, B]`` (and ``negatives``, if given, ``[K, B, NEG]``).  Returns
     the mean metrics over the K steps."""
     return _multi(make_train_step(model, cfg, optimizer, neg_cdf, item_dept,
-                                  item_cat, user_history, device))
+                                  item_cat, user_history, device, mesh,
+                                  shardings))
 
 
 # ------------------------------------------------- the sparse table update
@@ -253,17 +383,23 @@ TABLE_KEYS = ("user_emb", "item_emb")
 def sparse_mode_available(cfg: Config, mesh=None) -> bool:
     """Whether the sparse table update applies: rowwise-Adagrad tables,
     AdvancedNCF in the big-vocabulary (precompute-off) regime, and no
-    strictly-causal per-example histories.  The port has no mesh yet
-    (ROADMAP A5): given one, it raises."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "the sparse update over a mesh is not ported yet (ROADMAP A5)")
+    strictly-causal per-example histories.  Under a mesh, the reference's
+    static-shape rule too: sharded tables, both tables' rows dividing
+    ici and the batch dividing the ranks."""
     m, t = cfg.model, cfg.train
-    return (t.embedding_optimizer == "rowwise_adagrad"
+    base = (t.embedding_optimizer == "rowwise_adagrad"
             and m.name == "advanced_ncf"
             and not (m.use_sequence and m.causal_history)
             and m.num_users + m.num_items
             > 4 * t.batch_size * (1 + m.negative_samples))
+    if not base or mesh is None:
+        return base
+    E = int(mesh.shape[ICI_AXIS])
+    G = int(mesh.shape.get(DCN_AXIS, 1))
+    return bool(getattr(cfg.mesh, "shard_embeddings", True)
+                and m.num_users % E == 0
+                and m.num_items % E == 0
+                and t.batch_size % (E * G) == 0)
 
 
 def init_sparse_opt_state(dense_optimizer, params) -> Dict[str, Any]:
@@ -280,10 +416,14 @@ def init_sparse_opt_state(dense_optimizer, params) -> Dict[str, Any]:
             "count": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
-def _make_sparse_body(model, cfg: Config, dense_optimizer, schedule):
-    """One sparse step (``ncf_tpu/train/step.py::_make_sparse_body``
-    without a mesh).  It draws from ``gen`` in the dense step's order
-    (negatives, then dropout), so the two paths take the same draws."""
+def _make_sparse_body(model, cfg: Config, dense_optimizer, schedule,
+                      mesh=None):
+    """One sparse step (``ncf_tpu/train/step.py::_make_sparse_body``).
+    It draws from ``gen`` in the dense step's order (negatives, then
+    dropout), so the two paths take the same draws.  The tables are this
+    rank's shards: with ici > 1 the rows come through the exchange, and
+    the row gradients go to their owners (``train/sparse_sharded.py``;
+    on one rank that is the local combine)."""
     tcfg = cfg.train
     loss_fn = _make_loss_fn(model, cfg)
     clip = tcfg.gradient_clip_norm or 0.0
@@ -291,16 +431,24 @@ def _make_sparse_body(model, cfg: Config, dense_optimizer, schedule):
                  if tcfg.embedding_learning_rate else 1.0)
     ewd = getattr(tcfg, "embedding_weight_decay", 0.0) or 0.0
     eps = getattr(tcfg, "embedding_adagrad_eps", 1e-8)
+    plan = _MeshPlan(mesh)
+    mesh = plan.mesh
+
+    def gather(table, ids):
+        if mesh.shape[ICI_AXIS] > 1:
+            return exchange_gather(mesh, table, ids)
+        return table[ids.long()]
 
     def body(params, opt_state, gen, batch, consts, negatives=None):
         tables = {k: params[k] for k in TABLE_KEYS}
         dense = {k: v for k, v in params.items() if k not in TABLE_KEYS}
-        drawn = loss_fn.inputs(batch, gen, consts, negatives)
+        batch, drawn = plan.slice_batch(
+            batch, loss_fn.inputs(batch, gen, consts, negatives))
         items, _, history = drawn
         uids = batch["user_ids"]
         item_ids = items.reshape(-1)
-        rows = {"user_rows": tables["user_emb"][uids.long()],
-                "item_rows": tables["item_emb"][item_ids.long()].reshape(
+        rows = {"user_rows": gather(tables["user_emb"], uids),
+                "item_rows": gather(tables["item_emb"], item_ids).reshape(
                     items.shape + (-1,))}
         h_ids = None
         if history is not None:
@@ -308,11 +456,12 @@ def _make_sparse_body(model, cfg: Config, dense_optimizer, schedule):
             # anyway) and get exactly-zero gradients
             h_ids = torch.where(history >= 0, history,
                                 items[:, :1].to(history.dtype)).reshape(-1)
-            rows["history_rows"] = tables["item_emb"][h_ids.long()].reshape(
+            rows["history_rows"] = gather(tables["item_emb"], h_ids).reshape(
                 history.shape + (-1,))
         loss, logits, targets, grads = _grads(
             lambda d, *a, **r: loss_fn({**d, **tables}, *a, **r), dense,
-            batch, gen, consts, None, drawn, rows=rows)
+            batch, gen, consts, None, drawn, rows=rows, scale=plan.scale,
+            mesh=mesh)
         nd = len(grads) - len(rows)
         g_dense, g_u = grads[:nd], grads[nd]
         g_i = grads[nd + 1].reshape(-1, grads[nd + 1].shape[-1])
@@ -323,30 +472,23 @@ def _make_sparse_body(model, cfg: Config, dense_optimizer, schedule):
         with torch.no_grad():
             # optax's schedule is read at the count before the increment
             lr_t = schedule(opt_state["count"]) * emb_scale
-            # combine first: the clip norm is the dense path's, over
-            # per-row totals
-            u_rep, u_tot = combine_duplicate_rows(
-                uids, g_u, tables["user_emb"].shape[0])
-            i_rep, i_tot = combine_duplicate_rows(
-                item_upd_ids, g_i, tables["item_emb"].shape[0])
+            g_dense = plan.reduce_grads(list(g_dense))
+            # the clip norm is the dense path's: over the dense gradients
+            # and the per-row totals
+            dense_sq = (torch.stack([g.to(torch.float32).square().sum()
+                                     for g in g_dense]).sum()
+                        if clip > 0 and g_dense else None)
+            _, _, gscale = sharded_sparse_rowwise_adagrad_update(
+                mesh, [tables["user_emb"], tables["item_emb"]],
+                [opt_state["user_acc"], opt_state["item_acc"]],
+                [uids, item_upd_ids], [g_u, g_i], lr_t, eps, ewd,
+                clip=clip, dense_sq=dense_sq)
             if clip > 0:
-                sq = [g.to(torch.float32).square().sum()
-                      for g in g_dense + [u_tot, i_tot]]
-                trigger = torch.clamp(clip / torch.stack(sq).sum().sqrt(),
-                                      max=1.0)
                 for g in g_dense:
-                    g.mul_(trigger.to(g.dtype))
-                u_tot = u_tot * trigger
-                i_tot = i_tot * trigger
-            sparse_rowwise_adagrad_apply(
-                tables["user_emb"], opt_state["user_acc"], u_rep, u_tot,
-                lr_t, eps, ewd)
-            sparse_rowwise_adagrad_apply(
-                tables["item_emb"], opt_state["item_acc"], i_rep, i_tot,
-                lr_t, eps, ewd)
+                    g.mul_(gscale.to(g.dtype))
+            metrics = plan.metrics(loss, logits, targets)
             dense_state = dense_optimizer.update(dense, g_dense,
                                                  opt_state["dense"])
-            metrics = {"loss": loss, **accuracy_stats(logits, targets)}
         opt_state = {"dense": dense_state, "user_acc": opt_state["user_acc"],
                      "item_acc": opt_state["item_acc"],
                      "count": (opt_state["count"] + 1).to(torch.int32)}
@@ -365,10 +507,15 @@ def make_sparse_train_step(
     ``opt_state`` from ``init_sparse_opt_state``, ``dense_optimizer`` the
     dense params' optimizer (built without a clip: the step clips the
     whole set), ``schedule`` the learning rate's.  Tables and
-    accumulators are updated in place, touched rows only."""
-    sparse_mode_available(cfg, mesh)            # raises on a mesh
+    accumulators are updated in place, touched rows only.  Under a mesh
+    ``batch`` is the global batch and the tables and accumulators are
+    this rank's shards."""
+    if mesh is not None and not sparse_mode_available(cfg, mesh):
+        raise ValueError("the sparse update over this mesh needs sharded "
+                         "tables whose rows divide ici and a batch that "
+                         "divides the ranks")
     dev = resolve_device(device)
-    body = _make_sparse_body(model, cfg, dense_optimizer, schedule)
+    body = _make_sparse_body(model, cfg, dense_optimizer, schedule, mesh)
     consts = _consts(dev, neg_cdf, item_dept, item_cat, user_history)
 
     def train_step(params, opt_state, gen, batch, negatives=None):
@@ -397,19 +544,26 @@ def make_eval_step(
     item_cat=None,
     user_history=None,
     device: DeviceLike = None,
+    mesh=None,
 ) -> Callable:
     """Validation loss and accuracy stats on held-out interactions with
     freshly sampled (iid) negatives: ``eval_step(params, gen, batch,
     negatives=None) -> (gen, metrics)``.  Sequence models take history
-    from ``user_history`` only, as the reference's eval step does."""
+    from ``user_history`` only, as the reference's eval step does.
+    Under a mesh, ``batch`` is the global batch (the train step's
+    contract) and the metrics are its own."""
     dev = resolve_device(device)
     loss_fn = _make_loss_fn(model, cfg, training=False)
     consts = _consts(dev, neg_cdf, item_dept, item_cat, user_history)
+    plan = _MeshPlan(mesh)
 
     @torch.no_grad()
     def eval_step(params, gen, batch, negatives=None):
-        loss, logits, targets = loss_fn(params, _batch_to(batch, dev), gen,
-                                        consts, negatives)
-        return gen, {"loss": loss, **accuracy_stats(logits, targets)}
+        batch = _batch_to(batch, dev)
+        lbatch, ldrawn = plan.slice_batch(
+            batch, loss_fn.inputs(batch, gen, consts, negatives))
+        loss, logits, targets = loss_fn(params, lbatch, gen, consts, None,
+                                        ldrawn, mesh=plan.mesh)
+        return gen, plan.metrics(loss, logits, targets)
 
     return eval_step

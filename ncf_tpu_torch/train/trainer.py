@@ -23,9 +23,24 @@ Adagrad, the dense params the dense optimizer (built without a clip: the
 step clips the whole set), ``steps_per_dispatch: 0`` means 8 and no
 autotune, as in the reference.
 
-Not here yet: the mesh (``mesh=``, ``mesh.enable``; ROADMAP A5), the
-orbax checkpoint backends, and the explicit-exchange registry that only
-a mesh uses.  Each raises at construction.
+Under a mesh (``mesh=``, ``parallel/mesh.py``; every rank of the process
+group builds its own ``Trainer`` with the same config and log) the
+reference's mesh branch runs SPMD: the params are initialized whole from
+the seed on every rank and cut to the rank's part (tables row-sharded
+over ici where their rows divide it), the optimizer state is built on
+the parts, the lookups of sharded tables go through the explicit
+exchange whatever ``mesh.embedding_exchange`` says (there is no XLA to
+choose collectives), every rank reads the global batches of the host
+pipeline and trains on its slice (``train/step.py``), the fused tower
+folds the rank into its dropout seed, ``validate`` splits the eval users
+over the ranks, and only the primary rank logs metrics, marks the best
+checkpoint, collects old ones and pushes artifacts.  Checkpoints hold
+each shard in its own file (``train/checkpoint.py``).  ``steps_per_dispatch:
+0`` means 1 on the dense path under a mesh (autotune's timings could
+differ between ranks, and every rank must take the same K).
+
+The orbax checkpoint backends are not supported (orbax is a JAX
+library): they raise at construction.
 """
 
 from __future__ import annotations
@@ -49,7 +64,9 @@ from ncf_tpu_torch.evals.evaluate import (DeviceEvaluator, EvalSet,
 from ncf_tpu_torch.evals.full_eval import (FullCatalogEvaluator,
                                            full_ranks_naive)
 from ncf_tpu_torch.models import get_model
+from ncf_tpu_torch.convert import tree_map
 from ncf_tpu_torch.ops import embedding as embedding_ops
+from ncf_tpu_torch.parallel import mesh as mesh_lib
 from ncf_tpu_torch.train import checkpoint as ckpt_lib
 from ncf_tpu_torch.train.optim import make_optimizer, make_schedule
 from ncf_tpu_torch.train.step import (init_sparse_opt_state, make_eval_step,
@@ -69,22 +86,16 @@ _SCATTER = {"fast": ("fast", "bf16"),
             "xla": ("xla", "split")}
 
 
-def _check_supported(cfg: Config, mesh, dev: torch.device) -> None:
-    """Raise for what the port does not have yet, before any work."""
-    enable = cfg.mesh.enable
-    if isinstance(enable, bool):                 # YAML on/off coercion
-        enable = "on" if enable else "off"
-    several = dev.type == "cuda" and torch.cuda.device_count() > 1
-    if mesh is not None or enable == "on" or (enable == "auto" and several):
-        raise NotImplementedError(
-            "training over a mesh is not ported yet (ROADMAP A5); "
-            "set mesh.enable=off")
+def _check_supported(cfg: Config, mesh) -> None:
+    """Raise for what the port does not support, before any work."""
     if (cfg.train.sparse_table_update == "on"
-            and not sparse_mode_available(cfg)):
+            and not sparse_mode_available(cfg, mesh)):
         raise ValueError(
             "sparse_table_update=on requires rowwise_adagrad tables, "
             "advanced_ncf in the big-vocab regime (static-table "
-            "history only — causal_history is incompatible)")
+            "history only — causal_history is incompatible); "
+            "under a mesh: shard_embeddings with table rows divisible "
+            "by ici and batch divisible by the device count")
     if cfg.train.checkpoint_backend != "native":
         raise NotImplementedError(
             f"checkpoint_backend={cfg.train.checkpoint_backend!r} is not "
@@ -114,7 +125,7 @@ class Trainer:
         self.cfg = cfg
         self.device = dev = resolve_device(device)
         self.model = get_model(cfg.model.name)
-        self.mesh = None
+        self.mesh = mesh
 
         # ---- data: time split for the val loss, leave-one-out for ranking
         self.full = interactions
@@ -123,7 +134,7 @@ class Trainer:
         if interactions.item_dept is not None:
             cfg.model.num_departments = interactions.num_departments
             cfg.model.num_categories = interactions.num_categories
-        _check_supported(cfg, mesh, dev)
+        _check_supported(cfg, mesh)
 
         train_inter, val_inter = interactions.time_split(
             cfg.data.validation_days)
@@ -158,8 +169,10 @@ class Trainer:
 
         # device-resident epochs: the columns go to the device once and
         # each epoch is built there
+        # (a mesh keeps the host pipeline: every rank reads the global
+        # batches and trains on its slice)
         self.device_pipeline = None
-        if cfg.train.input_pipeline in ("auto", "device"):
+        if mesh is None and cfg.train.input_pipeline in ("auto", "device"):
             pipe = DeviceEpochPipeline(
                 train_inter, cfg.train.batch_size, seed=cfg.train.seed,
                 extra_cols=train_extra, device=dev)
@@ -190,9 +203,25 @@ class Trainer:
         # ---- params / optimizer / steps
         init_gen = torch.Generator(device=dev).manual_seed(cfg.train.seed)
         self.params = self.model.init(init_gen, cfg.model, device=dev)
+        self.shardings = None
+        self._exchange_rows = {}
+        embedding_ops.clear_exchange()
+        if mesh is not None:
+            # every rank initialized the same whole params: keep its part
+            self.shardings = mesh_lib.param_shardings(
+                self.params, mesh, cfg.mesh.shard_embeddings)
+            self._exchange_rows = {
+                k: self.params[k].shape[0]
+                for k, spec in self.shardings.items()
+                if spec == mesh_lib.SHARDED}
+            meta_params = tree_map(lambda p: torch.empty_like(
+                p, device="meta"), self.params)
+            self.params = mesh_lib.shard_pytree(self.params, self.shardings,
+                                                mesh)
+            self._register_exchange()
         mode = cfg.train.sparse_table_update
         self.sparse_tables = mode == "on" or (
-            mode == "auto" and sparse_mode_available(cfg))
+            mode == "auto" and sparse_mode_available(cfg, mesh))
         steps = len(self.train_iter)
         if self.sparse_tables:
             # the dense params' optimizer: the step clips the whole set
@@ -204,6 +233,19 @@ class Trainer:
         else:
             self.optimizer = make_optimizer(cfg.train, steps)
             self.opt_state = self.optimizer.init(self.params)
+        self._ckpt_specs = None
+        if mesh is not None:
+            # the checkpoint's spec tree, from the state's global shapes
+            meta_state = (init_sparse_opt_state(self.optimizer, meta_params)
+                          if self.sparse_tables
+                          else self.optimizer.init(meta_params))
+            self._ckpt_specs = {
+                "params": self.shardings,
+                "opt_state": mesh_lib.state_shardings(
+                    self._named(meta_state), mesh,
+                    cfg.mesh.shard_embeddings),
+                "rng": mesh_lib.REPLICATED}
+        # seeded alike on every rank: the replicated generator
         self.rng = torch.Generator(device=dev).manual_seed(cfg.train.seed + 1)
 
         embedding_ops.set_scatter_impl(*_SCATTER[cfg.train.embedding_scatter])
@@ -218,20 +260,27 @@ class Trainer:
                          else make_sparse_train_step)
             self.train_step = make_step(
                 self.model, cfg, self.optimizer, self._sparse_schedule,
-                self.neg_cdf, self.item_dept, self.item_cat,
+                self.neg_cdf, self.item_dept, self.item_cat, mesh=mesh,
                 user_history=self.user_history, device=dev)
         else:
-            if cfg.train.steps_per_dispatch == 0:
+            if cfg.train.steps_per_dispatch == 0 and mesh is not None:
+                log.info("mesh: steps_per_dispatch=1 (every rank must "
+                         "take the same K; autotune times each rank)")
+                cfg.train.steps_per_dispatch = 1
+            elif cfg.train.steps_per_dispatch == 0:
                 cfg.train.steps_per_dispatch = self._autotune_dispatch()
             make_step = (make_multi_train_step
                          if cfg.train.steps_per_dispatch > 1
                          else make_train_step)
-            self.train_step = make_step(*self._step_args(), device=dev)
+            self.train_step = make_step(*self._step_args(), device=dev,
+                                        mesh=mesh, shardings=self.shardings)
         self.eval_step = make_eval_step(
             self.model, cfg, self.neg_cdf, self.item_dept, self.item_cat,
-            self.user_history, device=dev)
+            self.user_history, device=dev, mesh=mesh)
 
-        self.metrics_logger = MetricsLogger(cfg.train.metrics_file or None)
+        self.primary = mesh is None or mesh.rank == 0
+        self.metrics_logger = MetricsLogger(
+            (cfg.train.metrics_file or None) if self.primary else None)
         self.global_step = 0
         self._resume_dispatch = 0
         self.start_epoch = 0
@@ -337,6 +386,7 @@ class Trainer:
         leave-one-out ranking metrics.  The negatives of the val loss come
         from a generator made afresh from ``seed + 12345`` on every call,
         so ``val_loss`` compares across epochs."""
+        self._register_exchange()
         totals: Dict[str, torch.Tensor] = {}
         n = 0
         gen = torch.Generator(device=self.device).manual_seed(
@@ -357,7 +407,8 @@ class Trainer:
                     self.model, self.cfg.model, self.eval_set,
                     batch_size=self.cfg.data.eval_batch_size,
                     item_dept=self.item_dept, item_cat=self.item_cat,
-                    user_history=self.eval_history, device=self.device)
+                    user_history=self.eval_history, device=self.device,
+                    mesh=self.mesh)
         out.update(self._device_eval(self.params))
         self.metrics_logger.write(kind="val", epoch=epoch,
                                   step=self.global_step, **out)
@@ -376,13 +427,17 @@ class Trainer:
                 item_dept=self.item_dept, item_cat=self.item_cat,
                 user_block=self.cfg.data.full_eval_user_block,
                 item_block=self.cfg.data.full_eval_item_block,
-                device=self.device)
+                device=self.device, mesh=self.mesh,
+                shardings=self.shardings)
 
         model, cfg_m, full = self.model, self.cfg.model, self.full
         hist, dept, cat = self.eval_history, self.item_dept, self.item_cat
         dev = self.device
+        mesh, specs = self.mesh, self.shardings
 
         def _naive_eval(params, ks=(1, 5, 10)):
+            if mesh is not None:
+                params = mesh_lib.gather_pytree(params, specs, mesh)
             ranks = full_ranks_naive(
                 model, params, cfg_m, full, eval_users, eval_items,
                 user_history=hist, item_dept=dept, item_cat=cat, device=dev)
@@ -403,6 +458,7 @@ class Trainer:
         # map@k) are maximised
         maximize = metric != "val_loss"
         bad_epochs = 0
+        self._register_exchange()
         try:
             for epoch in range(self.start_epoch, num_epochs):
                 train_m = self.train_epoch(epoch)
@@ -426,7 +482,9 @@ class Trainer:
                         # smaller best_val is always better
                         self.best_val = -score if maximize else score
                         self.best_metrics = {**val_m, "epoch": epoch}
-                        ckpt_lib.mark_best(cfg.train.checkpoint_dir, ckpt_dir)
+                        if self.primary:
+                            ckpt_lib.mark_best(cfg.train.checkpoint_dir,
+                                               ckpt_dir)
                         bad_epochs = 0
                     else:
                         bad_epochs += 1
@@ -437,12 +495,21 @@ class Trainer:
         except KeyboardInterrupt:
             raise
         except Exception:
+            if self.mesh is not None and self.mesh.size > 1:
+                # the other ranks may be inside a collective: a save
+                # (which waits for every rank) could not finish
+                log.exception("training failed on rank %d",
+                              self.mesh.rank)
+                raise
             log.exception("training failed; writing emergency checkpoint")
             self.save_checkpoint(epoch=-1, metrics={"emergency": 1.0})
             raise
         finally:
             ckpt_lib.wait_for_pending()
-        if cfg.train.artifact_store:
+            # the routing table is process-wide: serving in this process
+            # must not route through the training mesh
+            embedding_ops.clear_exchange()
+        if cfg.train.artifact_store and self.primary:
             from ncf_tpu_torch.utils.artifacts import push_training_artifacts
 
             job = cfg.train.job_name or f"run-{cfg.train.seed}"
@@ -457,11 +524,24 @@ class Trainer:
 
     # ---------------------------------------------------------- checkpoints
 
-    def _named_opt_state(self):
+    def _named(self, state):
         t = self.cfg.train
         return ckpt_lib.named_opt_state(
-            self.opt_state, t.gradient_clip_norm, t.weight_decay,
+            state, t.gradient_clip_norm, t.weight_decay,
             t.embedding_weight_decay, t.embedding_learning_rate)
+
+    def _named_opt_state(self):
+        return self._named(self.opt_state)
+
+    def _register_exchange(self) -> None:
+        """(Re)register this Trainer's exchange in the process-wide
+        routing table (``ops/embedding.py``)."""
+        if self._exchange_rows:
+            embedding_ops.set_exchange(
+                self.mesh, self._exchange_rows,
+                self.cfg.mesh.exchange_capacity_factor)
+            log.info("all-to-all embedding exchange on for %s",
+                     sorted(self._exchange_rows))
 
     def _state(self):
         # the step's generator is part of the trajectory (negatives and
@@ -476,12 +556,15 @@ class Trainer:
             step=self.global_step, epoch=epoch,
             metrics={k: v for k, v in metrics.items()
                      if isinstance(v, (int, float))},
-            config=self.cfg.to_dict(), extra=extra)
+            config=self.cfg.to_dict(), extra=extra, mesh=self.mesh,
+            shardings=self._ckpt_specs)
         # mid-epoch saves collect only other mid-epoch checkpoints, so
         # they never cycle the epoch-boundary ones out
-        ckpt_lib.garbage_collect(
-            self.cfg.train.checkpoint_dir, self.cfg.train.keep_checkpoints,
-            in_epoch_only=bool((extra or {}).get("in_epoch")))
+        if self.primary:
+            ckpt_lib.garbage_collect(
+                self.cfg.train.checkpoint_dir,
+                self.cfg.train.keep_checkpoints,
+                in_epoch_only=bool((extra or {}).get("in_epoch")))
         return path
 
     def resume(self, ckpt_dir: Optional[str] = None) -> bool:
@@ -493,18 +576,23 @@ class Trainer:
         if ckpt_dir is None:
             return False
         try:
-            state, manifest = ckpt_lib.restore(ckpt_dir, self._state(),
-                                               device=self.device)
+            state, manifest = ckpt_lib.restore(
+                ckpt_dir, self._state(), device=self.device, mesh=self.mesh,
+                shardings=self._ckpt_specs)
             self.rng.set_state(state["rng"].cpu())
         except Exception as err:    # noqa: BLE001 — see the fallback
             # no rng leaf, or another package's key (the JAX package saves
             # a uint32 key, the port a generator state): restore the rest
             # and keep this run's fresh generator
+            specs = self._ckpt_specs
             try:
                 state, manifest = ckpt_lib.restore(
                     ckpt_dir, {"params": self.params,
                                "opt_state": self._named_opt_state()},
-                    device=self.device)
+                    device=self.device, mesh=self.mesh,
+                    shardings=None if specs is None else {
+                        "params": specs["params"],
+                        "opt_state": specs["opt_state"]})
             except Exception:
                 raise err
             log.warning("checkpoint has no rng key; resumed run will not "

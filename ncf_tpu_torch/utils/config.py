@@ -2,9 +2,11 @@
 
 The port's own copy of ``ncf_tpu/utils/config.py`` (same dataclasses,
 same keys, so every ``configs/*.yaml`` loads unchanged).  It is kept as a
-copy because the port imports nothing of the JAX package.  The only
-difference: ``Config.build_mesh`` is absent (the JAX device mesh has no
-counterpart in the port yet).
+copy because the port imports nothing of the JAX package.  The one
+difference is ``Config.build_mesh``: the port's mesh is one of ranks of
+the ``torch.distributed`` process group (``parallel/mesh.py``), so
+``mesh.enable: auto`` builds one when the group has several ranks where
+the reference counts devices.
 """
 
 from __future__ import annotations
@@ -410,6 +412,20 @@ class Config:
                 f"mesh.enable must be off | auto | on, "
                 f"got {self.mesh.enable!r}")
         return self
+
+    def build_mesh(self):
+        """The configured mesh over the process group's ranks, or None
+        (``mesh.enable``: ``off`` none, ``auto`` when several ranks run,
+        ``on`` always, ``(1, 1)`` for one process)."""
+        if isinstance(self.mesh.enable, bool):    # YAML on/off coercion
+            self.mesh.enable = "on" if self.mesh.enable else "off"
+        if self.mesh.enable == "off":
+            return None
+        from ncf_tpu_torch.parallel import make_mesh, multihost
+
+        if self.mesh.enable == "auto" and multihost.process_count() <= 1:
+            return None
+        return make_mesh(dcn=self.mesh.dcn_axis, ici=self.mesh.ici_axis)
 
 
 def setup_logging(level: str = "INFO", log_file: Optional[str] = None) -> None:

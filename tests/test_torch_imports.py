@@ -45,7 +45,15 @@ def test_every_module_is_listed():
                  "ncf_tpu_torch.serving.features",
                  "ncf_tpu_torch.serving.export", "ncf_tpu_torch.serving.ann",
                  "ncf_tpu_torch.serving.intelligence", "ncf_tpu_torch.api",
-                 "ncf_tpu_torch.api.app", "ncf_tpu_torch.api.demo_page"):
+                 "ncf_tpu_torch.api.app", "ncf_tpu_torch.api.demo_page",
+                 "ncf_tpu_torch.parallel", "ncf_tpu_torch.parallel.mesh",
+                 "ncf_tpu_torch.parallel.multihost",
+                 "ncf_tpu_torch.parallel.embedding_sharding",
+                 "ncf_tpu_torch.parallel.sharded_topk",
+                 "ncf_tpu_torch.parallel.launch",
+                 "ncf_tpu_torch.parallel.dryrun",
+                 "ncf_tpu_torch.parallel.workers",
+                 "ncf_tpu_torch.train.sparse_sharded"):
         assert name in mods
 
 
@@ -254,3 +262,26 @@ def test_sparse_entry_points_default_to_the_card(monkeypatch):
         with pytest.raises(RuntimeError, match="CUDA"):
             build(get_model("advanced_ncf"), cfg, make_optimizer(cfg.train),
                   make_schedule(cfg.train, 10))
+
+
+def test_parallel_entry_points_default_to_the_card(monkeypatch):
+    """Without a card the parallel layer's entry points raise unless
+    asked for the CPU; one process needs no process group."""
+    from ncf_tpu_torch.parallel import initialize_distributed, make_mesh
+    from ncf_tpu_torch.parallel import multihost
+    from ncf_tpu_torch.parallel.launch import main as launch_main
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        multihost.rank_device()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        initialize_distributed(init_method="file:///nonexistent/store",
+                               world_size=2, rank=0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        launch_main(["--single-process", "--device", "cuda"])
+    assert initialize_distributed() == (0, 1)        # one process: no-op
+    assert make_mesh().shape == {"dcn": 1, "ici": 1}
+    assert multihost.rank_device("cpu").type == "cpu"
+    assert multihost.choose_backend("cuda", 2, 1)[0] == "gloo"
+    assert multihost.choose_backend("cuda", 4, 4)[0] == "nccl"
+    assert multihost.choose_backend("cpu", 2, 0)[0] == "gloo"

@@ -29,6 +29,7 @@ Tolerances, each stated where it is used:
 """
 
 import dataclasses
+import itertools
 import json
 import logging
 import os
@@ -419,8 +420,21 @@ def test_sparse_mode_gating_matches():
             setattr(tcfg.model, k, v)
         assert (tstep.sparse_mode_available(tcfg)
                 == jstep.sparse_mode_available(jcfg))
-    with pytest.raises(NotImplementedError, match="A5"):
-        tstep.sparse_mode_available(tcfg, mesh=object())
+    # under a mesh, the reference's divisibility rule
+    import types
+
+    from ncf_tpu.parallel.mesh import make_mesh as jmake_mesh
+
+    for (dcn, ici), (users, batch) in itertools.product(
+            ((1, 2), (2, 2), (1, 4)), ((900, 64), (902, 64), (900, 66))):
+        jcfg, tcfg = _cfg_pair()
+        for cfg in (jcfg, tcfg):
+            cfg.model.num_users, cfg.train.batch_size = users, batch
+        jmesh = jmake_mesh(dcn=dcn, ici=ici,
+                           devices=jax.devices()[:dcn * ici])
+        tmesh = types.SimpleNamespace(shape={"dcn": dcn, "ici": ici})
+        assert (tstep.sparse_mode_available(tcfg, tmesh)
+                == jstep.sparse_mode_available(jcfg, jmesh))
 
 
 # ------------------------------------- the Trainer: sparse against dense

@@ -155,15 +155,22 @@ def test_pipeline_choice_and_gate(tmp_path, logs):
 
 
 def test_unported_modes_raise_at_construction(tmp_path, logs, monkeypatch):
+    """The mesh is ported (``tests/test_torch_parallel_*.py``): a
+    ``Trainer`` over the one-process ``(1, 1)`` mesh and one under
+    ``mesh.enable: on`` build; only orbax and a missing card raise."""
+    from ncf_tpu_torch.parallel import make_mesh
+
     tinter, _ = logs
-    with pytest.raises(NotImplementedError, match="A5"):
-        Trainer(_small(Config(), tmp_path), tinter, mesh=object(),
+    t = Trainer(_small(Config(), tmp_path), tinter, mesh=make_mesh(),
                 device="cpu")
+    assert t.mesh.shape == {"dcn": 1, "ici": 1} and t.device_pipeline is None
     cfg = _small(Config(), tmp_path)
     cfg.mesh.enable = "on"
-    with pytest.raises(NotImplementedError, match="A5"):
-        Trainer(cfg, tinter, device="cpu")
-    cfg.mesh.enable = "auto"                        # one device: no mesh
+    mesh = cfg.build_mesh()
+    assert mesh is not None and mesh.size == 1
+    Trainer(cfg, tinter, mesh=mesh, device="cpu")
+    cfg.mesh.enable = "auto"                        # one process: no mesh
+    assert cfg.build_mesh() is None
     Trainer(cfg, tinter, device="cpu")
     # the sparse table update is ported (test_torch_sparse.py): it builds
     cfg = _small(Config(), tmp_path, sparse_table_update="on",
