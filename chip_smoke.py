@@ -199,7 +199,29 @@ Phases (each asserts; any failure exits non-zero and prints no result):
    checkpoint's bits; one step over a (1, 1) mesh on NCCL equal bit for
    bit to the step given no mesh.
 
+22. the host tools: ``build_warehouse`` at ML-1M's 6,040 users and 3,706
+   items (20 stores, 60 days) on the host, each table's rows counted and
+   1,000 of each held to its schema; the ``Trainer`` on that log
+   (``advanced_ncf_ml1m.yaml`` as shipped, sized to the log): one epoch
+   with B1, B2 (seven a step), B3, B4f and B4b counted, the loss falling,
+   ``validate`` and a best checkpoint; ``profiling.StepTimer`` over 20
+   bare steps, then three more inside ``profiling.trace`` with
+   ``annotate("train_step")``, the written Chrome trace holding the spans
+   and a device event of each training kernel by its symbol; the
+   ``monitoring`` alerts over the ``Trainer``'s records (``low-hr10``
+   fires exactly when hr@10 < 0.3), the API over the best checkpoint (64
+   single customers and ``_api_requests``) and ``build_dashboard`` over
+   its records, its latency p50/p99 equal to the records', no errors;
+   ``doctor``'s ``compile`` check (B7 bit for bit), then four ``python
+   -m ncf_tpu_torch.cli doctor`` processes at once: the ML-1M config (rc
+   0), the bigvocab config at 12M x 4M (rc 0, its estimate of
+   16,733,130,752 bytes), the ML-25M config with ``mesh.enable=on`` (rc
+   1: one process is one rank) and ``model.negative_samples=0`` (rc 1).
+   It runs after phase 17 and before the mesh phases.
+
     python3 chip_smoke.py --mesh-only   # the kernels, then phases 18-21
+
+    python3 chip_smoke.py --tools-only  # the kernels, then phase 22
 
     python3 chip_smoke.py --gate   # builds the kernels, then only the gate
 
@@ -4731,6 +4753,454 @@ def phase_gate_bigvocab(torch, card):
     return time.perf_counter() - t_phase, out
 
 
+# ------------------------------------------------- the tools (phase 22)
+
+TOOLS_DIR = os.path.join(SMOKE_DIR, "tools")
+# ML-1M's users and items, the warehouse's default stores, two months
+WAREHOUSE = {"num_users": 6040, "num_items": 3706, "num_stores": 20,
+             "num_days": 60, "seed": 0}
+WAREHOUSE_TABLES = ("loyalty_customer_dim", "store_dim", "product_features",
+                    "transaction_header_fact", "transaction_body_fact")
+WAREHOUSE_SAMPLE = 1000     # rows of each table held to its schema
+TOOLS_STEPS = 20            # bare steps timed by StepTimer
+TOOLS_TRACED = 3            # steps inside the trace, after the timed ones
+TOOLS_TRACE_TRIES = 3       # traces taken until one holds every kernel
+TOOLS_SINGLES = 64          # single-customer dispatch calls
+# each training kernel's symbol, as a device event of the trace shows it
+TOOLS_SYMBOLS = {"tree_sample_negatives": "tree_sample_kernel",
+                 "onehot_scatter_add": "scatter_rows_kernel",
+                 "fused_lookup_sum": "temporal_sum_kernel",
+                 "fused_tower_fwd": "tower_fwd_kernel",
+                 "fused_tower_bwd": "tower_bwd_kernel"}
+DOCTOR_CHECKS = ("config", "devices", "compile", "hbm", "mesh",
+                 "artifact_store", "native", "redis")
+# the bigvocab config at the vocabulary it trains (the doctor reads the
+# model's as the config writes it), and its estimate in bytes
+DOCTOR_BIGVOCAB = ["model.num_users=12000000", "model.num_items=4000000"]
+DOCTOR_BIGVOCAB_BYTES = 16_733_130_752
+# phase 16's measured peaks (NVIDIA H100 80GB HBM3, 700 W), printed beside
+# the estimate
+BIG_PEAKS_GB = {"sparse": "9.0-9.2", "dense rowwise": "33"}
+
+
+def _sample_rows(path, n, seed=0):
+    """``n`` rows of a JSONL table, drawn without replacement."""
+    import numpy as np
+
+    with open(path) as f:
+        lines = f.readlines()
+    pick = np.random.default_rng(seed).choice(
+        len(lines), min(n, len(lines)), replace=False)
+    return [json.loads(lines[i]) for i in sorted(pick)]
+
+
+def _tools_warehouse(root):
+    """Part 1: the warehouse at ML-1M's users and items on the host, each
+    table counted and a sample of each held to its schema."""
+    from ncf_tpu_torch.data.generators import build_warehouse
+    from ncf_tpu_torch.data.schemas import DatasetWriter, validate_row
+
+    t0 = time.perf_counter()
+    inter = build_warehouse(root, **WAREHOUSE)
+    build_s = time.perf_counter() - t0
+    writer = DatasetWriter(root)
+    counts = {t: writer.count_rows(t) for t in WAREHOUSE_TABLES}
+    want = {"loyalty_customer_dim": WAREHOUSE["num_users"],
+            "store_dim": WAREHOUSE["num_stores"],
+            "product_features": WAREHOUSE["num_items"],
+            "transaction_body_fact": len(inter)}
+    for t, n in want.items():
+        check(counts[t] == n, f"warehouse: {t} has {counts[t]} rows, want {n}")
+    check(0 < counts["transaction_header_fact"] <= len(inter),
+          f"warehouse: {counts['transaction_header_fact']} visits")
+    for t in WAREHOUSE_TABLES:
+        for row in _sample_rows(os.path.join(root, f"{t}.jsonl"),
+                                WAREHOUSE_SAMPLE):
+            errs = validate_row(t, row)
+            check(not errs, f"warehouse: a {t} row breaks its schema: {errs}")
+    mb = sum(os.path.getsize(os.path.join(root, f"{t}.jsonl"))
+             for t in WAREHOUSE_TABLES) / 1e6
+    log(f"tools: warehouse {WAREHOUSE['num_users']}x{WAREHOUSE['num_items']}"
+        f" in {build_s!r} s (host), {len(inter)} interactions, {mb:.1f} MB "
+        f"of JSONL, rows {json.dumps(counts)}; {WAREHOUSE_SAMPLE} rows of "
+        f"each table pass validate_row")
+    return inter, {"build_s": build_s, "rows": counts, "jsonl_mb": mb,
+                   "interactions": len(inter)}
+
+
+def _tools_trainer(torch, inter, root):
+    """Part 2: the ``Trainer`` on the warehouse log, config A as shipped
+    with the model sized to the log: one epoch, each step's training
+    kernels counted, ``validate``, a best checkpoint.  A train record a
+    dispatch (``log_every_steps`` 1: the logging cadence only) shows the
+    loss falling.  Returns (trainer, sized config, best checkpoint,
+    launches, summary)."""
+    from ncf_tpu_torch.train import Trainer
+    from ncf_tpu_torch.train import checkpoint as ckpt_lib
+
+    cfg = _trainer_cfg(os.path.join(root, "ckpt"))
+    cfg.model.num_users, cfg.model.num_items = inter.num_users, inter.num_items
+    cfg.model.num_departments = inter.num_departments
+    cfg.model.num_categories = inter.num_categories
+    cfg.train.log_every_steps = 1
+    check(cfg.model.fused_tower == "auto", "tools: fused_tower is not auto")
+    t0 = time.perf_counter()
+    t = Trainer(cfg, inter)
+    setup_s = time.perf_counter() - t0
+    counters = _launch_counters()
+    for c in counters.values():
+        c.reset()
+    m = t.train_epoch(0)
+    steps = t.global_step
+    launches = {k: c.value for k, c in counters.items()}
+    check(steps > 0, "tools: the epoch took no step")
+    for k, n in launches.items():
+        check(n == PER_STEP[k] * steps, f"tools: {k} launched {n} times in "
+              f"{steps} steps, want {PER_STEP[k]} a step")
+    t0 = time.perf_counter()
+    val = t.validate(0)
+    torch.cuda.synchronize()
+    validate_s = time.perf_counter() - t0
+    best = t.save_checkpoint(0, val)
+    ckpt_lib.mark_best(cfg.train.checkpoint_dir, best)
+    check(ckpt_lib.find_best(cfg.train.checkpoint_dir) == best,
+          "tools: the best checkpoint is not found")
+    losses = [r["loss"] for r in t.metrics_logger.recent(4096)
+              if r.get("kind") == "train"]
+    check(len(losses) >= 2, f"tools: {len(losses)} train records")
+    h = max(1, len(losses) // 3)
+    first, last = sum(losses[:h]) / h, sum(losses[-h:]) / h
+    check(last < first, f"tools: the loss did not fall ({first!r} -> "
+          f"{last!r})")
+    check(all(v == v for v in val.values()), f"tools: validate gave {val}")
+    log(f"tools: Trainer set up in {setup_s!r} s (steps_per_dispatch="
+        f"{cfg.train.steps_per_dispatch}), epoch of {steps} steps in "
+        f"{m['epoch_seconds']!r} s ({m['examples_per_s']!r} examples/s), "
+        f"loss {first!r} -> {last!r} (first and last third of "
+        f"{len(losses)} records), validate {validate_s!r} s: val_loss "
+        f"{val['val_loss']!r}, hr@10 {val['hr@10']!r}; launches "
+        f"{json.dumps(launches)}")
+    return t, cfg, best, launches, {
+        "setup_s": setup_s, "steps": steps,
+        "steps_per_dispatch": cfg.train.steps_per_dispatch,
+        "epoch_s": m["epoch_seconds"], "examples_per_s": m["examples_per_s"],
+        "loss_first": first, "loss_last": last, "validate_s": validate_s,
+        "val_loss": val["val_loss"], "hr@10": val["hr@10"]}
+
+
+def _trace_kernels(trace_dir):
+    """(the ``train_step`` spans, {kernel: device events}) of the Chrome
+    trace written under ``trace_dir``."""
+    import glob
+
+    files = glob.glob(os.path.join(trace_dir, "*.pt.trace.json"))
+    check(len(files) == 1, f"tools: trace files {files}")
+    with open(files[0]) as f:
+        events = json.load(f)["traceEvents"]
+    spans = sum(1 for e in events if e.get("name") == "train_step"
+                and e.get("cat") == "user_annotation")
+    kernels = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    return spans, {k: sum(1 for n in kernels if sym in n)
+                   for k, sym in TOOLS_SYMBOLS.items()}
+
+
+def _tools_profiling(torch, t, cfg, root, phase11):
+    """Part 3: ``StepTimer`` over ``TOOLS_STEPS`` bare steps on the
+    warehouse batches from seeded params, then ``TOOLS_TRACED`` more
+    inside ``profiling.trace`` with ``annotate("train_step")`` (after the
+    timed steps: the profiler's start-up, seconds on its first use, and
+    the trace's write stay out of the timer); the written trace must
+    hold the spans and a device event of each training kernel (traced
+    again, up to ``TOOLS_TRACE_TRIES`` times, where a trace comes back
+    without them)."""
+    import shutil
+
+    from ncf_tpu_torch.models import advanced_ncf, get_model
+    from ncf_tpu_torch.train import make_optimizer, make_train_step
+    from ncf_tpu_torch.utils.profiling import StepTimer, annotate, trace
+
+    batches = list(t.train_iter.epoch(1))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = advanced_ncf.init(gen, cfg.model)
+    opt = make_optimizer(cfg.train, steps_per_epoch=len(batches))
+    state = opt.init(params)
+    step = make_train_step(get_model("advanced_ncf"), cfg, opt, t.neg_cdf,
+                           t.item_dept, t.item_cat)
+    counters = _launch_counters()
+    for c in counters.values():
+        c.reset()
+    box = {"p": params, "s": state, "g": gen, "i": 0, "loss": []}
+
+    def one():
+        b = batches[box["i"] % len(batches)]
+        box["i"] += 1
+        box["p"], box["s"], box["g"], m_ = step(box["p"], box["s"],
+                                                box["g"], b)
+        box["loss"].append(m_["loss"])
+
+    def traced(d):
+        shutil.rmtree(d, ignore_errors=True)
+        with trace(d):
+            for _ in range(TOOLS_TRACED):
+                with annotate("train_step"):
+                    one()
+
+    one()                                   # allocates the optimizer state
+    torch.cuda.synchronize()
+    timer = StepTimer(batch_size=cfg.train.batch_size)
+    timer.tick()
+    for _ in range(TOOLS_STEPS):
+        one()
+        timer.tick()                        # no device sync
+    stats = timer.stats(block_on=box["p"])  # one sync
+    trace_dir = os.path.join(root, "trace")
+    t0 = time.perf_counter()
+    traced(trace_dir)
+    trace_s = time.perf_counter() - t0
+    tries = 1
+    spans, events = _trace_kernels(trace_dir)
+    while min(events.values()) == 0 and tries < TOOLS_TRACE_TRIES:
+        log(f"tools: trace {tries} holds no device event of "
+            f"{[k for k, n in events.items() if n == 0]}; tracing again")
+        tries += 1
+        traced(trace_dir)
+        spans, events = _trace_kernels(trace_dir)
+    check(spans == TOOLS_TRACED, f"tools: {spans} train_step spans in the "
+          f"trace, want {TOOLS_TRACED}")
+    missing = [k for k, n in events.items() if n == 0]
+    check(not missing, f"tools: no device event of {missing} in "
+          f"{TOOLS_TRACE_TRIES} traces")
+    n_steps = box["i"]
+    launches = {k: c.value for k, c in counters.items()}
+    for k, n in launches.items():
+        check(n == PER_STEP[k] * n_steps, f"tools: bare steps launched {k} "
+              f"{n} times in {n_steps} steps")
+    losses = torch.stack(box["loss"]).float().cpu()
+    first, last = _loss_fell(losses, "tools bare steps")
+    ref = ("not run (--tools-only)" if phase11 is None else
+           f"{phase11['step_ms_host_clock']!r} ms, "
+           f"{phase11['examples_per_s']!r} examples/s")
+    log(f"tools: StepTimer over {int(stats['steps'])} steps: p50 "
+        f"{stats['step_ms_p50']!r} ms, mean {stats['step_ms_mean']!r} ms, "
+        f"p99 {stats['step_ms_p99']!r} ms, {stats['examples_per_s']!r} "
+        f"examples/s (by the mean) at batch {cfg.train.batch_size}; phase "
+        f"11's config A joint auto: {ref}; trace of {TOOLS_TRACED} steps "
+        f"{trace_s!r} s, {tries} tr(y/ies), spans {spans}, device events "
+        f"{json.dumps(events)}; loss {first!r} -> {last!r}")
+    return launches, {"step_timer": stats, "phase11_a_joint_auto": (
+        None if phase11 is None else {k: phase11[k] for k in (
+            "step_ms_host_clock", "examples_per_s")}),
+        "trace_s": trace_s, "trace_tries": tries, "trace_spans": spans,
+        "trace_device_events": events, "loss_first5": first,
+        "loss_last5": last}
+
+
+def _tools_monitoring(t, cfg, best, inter, card):
+    """Part 4: ``AlertManager`` over the ``Trainer``'s records (``low-hr10``
+    fires exactly when the val record's hr@10 is below 0.3); the API at
+    ML-1M width over the warehouse ``Trainer``'s best checkpoint answers
+    ``TOOLS_SINGLES`` single-customer ``dispatch`` calls and
+    ``_api_requests``; ``build_dashboard`` over its records gives the
+    latency p50/p99 computed from the records directly, and no errors."""
+    import numpy as np
+
+    from ncf_tpu_torch.api import RecommendationAPI
+    from ncf_tpu_torch.serving import (FeatureProcessor, FeatureStore,
+                                       ModelServer)
+    from ncf_tpu_torch.utils.monitoring import (AlertManager,
+                                                build_dashboard,
+                                                render_dashboard_text,
+                                                save_dashboard_json)
+
+    fired = AlertManager(t.metrics_logger, notifier=lambda a: None).check()
+    vals = [r for r in t.metrics_logger.recent(4096) if r.get("kind") == "val"]
+    check(len(vals) == 1, f"tools: {len(vals)} val records")
+    hr = vals[0]["hr@10"]
+    names = sorted(a["policy"] for a in fired)
+    check(names == (["low-hr10"] if hr < 0.3 else []),
+          f"tools: alerts {names} for a val hr@10 of {hr!r}")
+
+    server = ModelServer.from_checkpoint(
+        cfg, best, item_dept=inter.item_dept, item_cat=inter.item_cat,
+        device="cuda")
+    try:
+        api = RecommendationAPI(server, FeatureProcessor(FeatureStore(inter)))
+        users = np.random.default_rng(22).choice(inter.num_users,
+                                                 TOOLS_SINGLES, replace=False)
+        for u in users.tolist():
+            rec = _api_call(api, "POST", API_REC, {"customer_id": str(u)},
+                            "tools single")
+            s, i, _ = server.recommend(u, k=10)
+            _same_recs(rec["recommendations"], s, i, f"tools single {u}")
+        latency = _api_requests(api, server, users, "tools")
+        summary = _no_errors(api, "tools")
+        window = 1000
+        records = api.metrics.recent(4096)
+        check(len(records) <= window, f"tools: {len(records)} records "
+              f"exceed the dashboard's window of {window}")
+        spec = build_dashboard(api.metrics, window=window)
+        panels = {p["metric"]: p["values"] for p in spec["panels"]}
+        ms = sorted(float(r["latency_ms"]) for r in records
+                    if "latency_ms" in r)
+        direct = {"p50": ms[len(ms) // 2],
+                  "p99": ms[min(len(ms) - 1, int(len(ms) * 0.99))]}
+        got = {k: panels["latency_ms"][k] for k in ("p50", "p99")}
+        check(got == direct and got == {
+            "p50": summary["latency_ms_p50"], "p99": summary["latency_ms_p99"]},
+            f"tools: dashboard latency {got}, records {direct}, summary "
+            f"{summary}")
+        check(panels["_errors"]["count"] == 0.0,
+              f"tools: the dashboard counts {panels['_errors']} errors")
+        save_dashboard_json(spec, os.path.join(TOOLS_DIR, "dashboard.json"))
+        text = render_dashboard_text(spec)
+    finally:
+        server.close()
+    for line in text.splitlines():
+        log(f"tools: {line}")
+    log(f"tools: alerts on the Trainer's records {names} (val hr@10 "
+        f"{hr!r}); the dashboard's latency {got} over {len(ms)} records "
+        f"equals the records'; {card}")
+    return {"alerts": names, "val_hr@10": hr, "requests": len(ms),
+            "dashboard_latency_ms": got, "api_latency": latency}
+
+
+def _start_doctor(config, overrides, ckpt_dir):
+    """``python -m ncf_tpu_torch.cli doctor`` started as a process of its
+    own; (process, start time)."""
+    cmd = [sys.executable, "-m", "ncf_tpu_torch.cli", "doctor", "--config",
+           config, "--log-level", "WARNING",
+           f"train.checkpoint_dir={ckpt_dir}"] + list(overrides)
+    return (subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE,
+                             stderr=subprocess.PIPE, text=True),
+            time.perf_counter())
+
+
+def _finish_doctor(job, what):
+    """(exit code, stdout, {check: (icon, message)}, wall seconds) of a
+    doctor process; its eight checks must be listed in order."""
+    proc, t0 = job
+    try:
+        out, err = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    secs = time.perf_counter() - t0
+    rows = [ln.split(None, 2) for ln in out.splitlines()
+            if ln and not ln.startswith("doctor:")]
+    lines = {r[1]: (r[0], r[2] if len(r) > 2 else "") for r in rows
+             if len(r) >= 2}
+    check(list(lines) == list(DOCTOR_CHECKS),
+          f"doctor {what}: rc {proc.returncode}, checks {list(lines)}: "
+          f"{out[-2000:]} {err[-2000:]}")
+    return proc.returncode, out, lines, secs
+
+
+def _tools_doctor(torch, root):
+    """Part 5: the ``compile`` check in this process (B7 counted), then
+    ``doctor`` through the CLI on four configs, the four processes
+    started together, with the exit codes they must give."""
+    from ncf_tpu_torch.ops import _kernels
+    from ncf_tpu_torch.ops.gather import gather_rows
+    from ncf_tpu_torch.utils import doctor
+
+    gather_rows.launches.reset()
+    name, status, msg = doctor.check_compile_smoke("cuda")
+    check(status == "ok" and "bit for bit" in msg, f"doctor compile: {msg}")
+    b7 = gather_rows.launches.value
+    check(b7 == 1, f"doctor compile: B7 launched {b7} times")
+    ck = os.path.join(root, "doctor_ckpt")
+    kind = torch.cuda.get_device_name(0)
+    jobs = {"ml1m": _start_doctor(ML1M, [], ck),
+            "bigvocab": _start_doctor(BIGVOCAB, DOCTOR_BIGVOCAB, ck),
+            "ml25m_mesh_on": _start_doctor(
+                ML25M, ["mesh.enable=on", "mesh.ici_axis=2"], ck),
+            "negative_samples_0": _start_doctor(
+                ML1M, ["model.negative_samples=0"], ck)}
+    res = {what: _finish_doctor(job, what) for what, job in jobs.items()}
+    runs = {what: {"rc": r[0], "s": r[3]} for what, r in res.items()}
+
+    rc, out, lines, _ = res["ml1m"]
+    check(rc == 0, f"doctor ml1m exited {rc}: {out}")
+    check(lines["devices"][0] == "✓" and kind in lines["devices"][1],
+          f"doctor ml1m devices: {lines['devices']}")
+    check(lines["compile"][0] == "✓" and "bit for bit" in lines["compile"][1]
+          and f"{len(_kernels.SOURCES)} sources built" in lines["compile"][1],
+          f"doctor ml1m compile: {lines['compile']}")
+    runs["ml1m"]["compile"] = lines["compile"][1]
+
+    rc, out, lines, _ = res["bigvocab"]
+    check(rc == 0, f"doctor bigvocab exited {rc}: {out}")
+    hbm = lines["hbm"][1]
+    check(lines["hbm"][0] == "✓" and f"({DOCTOR_BIGVOCAB_BYTES} B)" in hbm,
+          f"doctor bigvocab hbm: {lines['hbm']}")
+    runs["bigvocab"]["hbm"] = hbm
+    log(f"tools: doctor bigvocab at 12M x 4M: {hbm}; phase 16's measured "
+        f"peaks (H100 80GB HBM3, 700 W): {json.dumps(BIG_PEAKS_GB)} GB")
+
+    rc, out, lines, _ = res["ml25m_mesh_on"]
+    check(rc == 1 and lines["mesh"][0] == "✗"
+          and "torch.distributed.run" in lines["mesh"][1],
+          f"doctor ml25m mesh on: rc {rc}: {out}")
+    runs["ml25m_mesh_on"]["mesh"] = lines["mesh"][1]
+
+    rc, out, lines, _ = res["negative_samples_0"]
+    check(rc == 1 and lines["config"][0] == "✗"
+          and "negative_samples" in lines["config"][1],
+          f"doctor negative_samples=0: rc {rc}: {out}")
+    for what, r in runs.items():
+        log(f"tools: doctor[{what}] rc {r['rc']} in {r['s']!r} s (four "
+            f"processes at once, torch import and CUDA start included)")
+    log(f"tools: doctor compile in this process: {msg}")
+    return {"gather_rows": b7}, runs
+
+
+def phase_tools(torch, card, phase11=None):
+    """Phase 22: the host tools on the card — the warehouse, the
+    ``Trainer`` on its log, ``profiling`` around bare steps,
+    ``monitoring`` over the ``Trainer``'s and the API's records, and
+    ``doctor`` through the CLI.  ``phase11``: phase 11's config A joint
+    auto step summary, printed beside ``StepTimer``'s (None alone).
+    Returns ({kernel: launches}, summary)."""
+    import shutil
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(TOOLS_DIR, ignore_errors=True)
+    os.makedirs(TOOLS_DIR)
+    parts = {}
+    t0 = time.perf_counter()
+    inter, wh = _tools_warehouse(os.path.join(TOOLS_DIR, "warehouse"))
+    parts["warehouse_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    t, cfg, best, launches, tr = _tools_trainer(torch, inter, TOOLS_DIR)
+    parts["trainer_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    bare, prof = _tools_profiling(torch, t, cfg, TOOLS_DIR, phase11)
+    parts["profiling_s"] = time.perf_counter() - t0
+    for k, v in bare.items():
+        launches[k] += v
+
+    t0 = time.perf_counter()
+    mon = _tools_monitoring(t, cfg, best, inter, card)
+    parts["monitoring_s"] = time.perf_counter() - t0
+    del t
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    b7, doc = _tools_doctor(torch, TOOLS_DIR)
+    parts["doctor_s"] = time.perf_counter() - t0
+    launches.update(b7)
+    shutil.rmtree(TOOLS_DIR, ignore_errors=True)
+    parts["phase_s"] = time.perf_counter() - t_phase
+    log(f"tools: parts {json.dumps(parts)}; launches {json.dumps(launches)}"
+        f"; {card}")
+    return launches, {"parts": parts, "warehouse": wh, "trainer": tr,
+                      "profiling": prof, "monitoring": mon, "doctor": doc,
+                      "launches": launches, "card": card}
+
+
 # ------------------------------------------------- the mesh (phases 18-21)
 
 ML25M = os.path.join(ROOT, "configs", "advanced_ncf_ml25m_sharded.yaml")
@@ -5638,6 +6108,15 @@ def main() -> int:
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}), flush=True)
         return 0
+    if "--tools-only" in sys.argv[1:]:
+        # phase 22 alone, with its contract lines
+        tools_launches, tools_summary = phase_tools(torch, card)
+        log("tools_json: " + json.dumps(tools_summary))
+        log("tools_launches_json: " + json.dumps(tools_launches))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
     if "--mesh-only" in sys.argv[1:]:
         # the parallel layer's phases alone (18-21), with their contract
         # lines; the default run drives every phase
@@ -5740,7 +6219,7 @@ def main() -> int:
     log("eval_json: " + json.dumps(eval_summary))
 
     t0 = time.perf_counter()
-    train_rows, _ = phase_training_timing(torch)
+    train_rows, train_steps = phase_training_timing(torch)
     log(f"phase training_timing {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
@@ -5776,6 +6255,17 @@ def main() -> int:
     log(f"phase bigvocab_trainer {time.perf_counter() - t0:.1f} s")
     log("bigvocab_trainer_json: " + json.dumps(cli_summary))
     for k, v in list(big_launches.items()) + list(cli_launches.items()):
+        launches[k] = launches.get(k, 0) + v
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    tools_launches, tools_summary = phase_tools(
+        torch, card, next((s for s in train_steps
+                           if s["what"] == "A joint auto"), None))
+    log(f"phase tools {time.perf_counter() - t0:.1f} s, kernel launches "
+        f"{json.dumps(tools_launches)}")
+    log("tools_json: " + json.dumps(tools_summary))
+    for k, v in tools_launches.items():
         launches[k] = launches.get(k, 0) + v
     torch.cuda.empty_cache()
     for k, v in run_mesh_phases(torch, card).items():

@@ -1,13 +1,14 @@
 """Command-line interface: train / evaluate / score / serve / export /
-datagen / consolidate / demo.
+datagen / consolidate / demo / doctor.
 
 Port of ``ncf_tpu/cli.py`` with the same parsing: ``--config``, dotted
 ``section.key=value`` overrides, ``--log-level`` and each subcommand's
 own flags (``--resume`` for ``train``; ``--checkpoint`` and ``--protocol
 {sampled,full,both}`` for ``evaluate``; ``--num-users``, ``--top-k`` and
 ``--output`` for ``score``; ``--port`` for ``serve``; ``--users`` for
-``export``; ``--customer`` and ``--hour`` for ``demo``).  ``--device``
-(default ``cuda``) picks the card or, when asked, the CPU.
+``export``; ``--customer`` and ``--hour`` for ``demo``; ``doctor`` takes
+only the common flags).  ``--device`` (default ``cuda``) picks the card
+or, when asked, the CPU.
 
 Usage:  python -m ncf_tpu_torch.cli <command> [--config cfg.yaml]
         [--device cuda|cpu] [section.key=value ...]
@@ -377,6 +378,18 @@ def cmd_demo(args) -> int:
     return 0
 
 
+def cmd_doctor(args) -> int:
+    """Environment validator (reference: scripts/0. setup/
+    validate_setup.py:17-30) — the cards and their compute capability,
+    the kernels built and one launched, the configured model's memory
+    against the card, mesh fit, checkpoint-dir writability, native
+    loader, redis reachability."""
+    from ncf_tpu_torch.utils import doctor
+
+    cfg = load_config(args)
+    return doctor.run(cfg, device=args.device)
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="ncf_tpu_torch",
@@ -448,6 +461,14 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--top-k", type=int, default=5)
     sp.add_argument("--hour", type=int, default=None)
     sp.set_defaults(fn=cmd_demo)
+
+    sp = sub.add_parser(
+        "doctor",
+        help="validate the environment: cards, kernel build and launch, "
+             "memory budget vs config, mesh fit, checkpoint-dir "
+             "writability, native loader, redis")
+    common(sp)
+    sp.set_defaults(fn=cmd_doctor)
     return p
 
 

@@ -1,5 +1,6 @@
 from ncf_tpu_torch.data.interactions import SECONDS_PER_DAY, Interactions
-from ncf_tpu_torch.data.pipeline import BatchIterator
+from ncf_tpu_torch.data.pipeline import (BatchIterator, group_batches,
+                                         prefetch_to_device)
 from ncf_tpu_torch.data.sampler import (
     make_sampling_cdf,
     padded_histories,
@@ -13,6 +14,8 @@ __all__ = [
     "Interactions",
     "SECONDS_PER_DAY",
     "BatchIterator",
+    "prefetch_to_device",
+    "group_batches",
     "make_sampling_cdf",
     "padded_histories",
     "sample_eval_negatives",

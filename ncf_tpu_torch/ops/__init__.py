@@ -1,4 +1,4 @@
-from ncf_tpu_torch.ops.embedding import embedding_lookup
+from ncf_tpu_torch.ops.embedding import embedding_lookup, get_impl, set_impl
 from ncf_tpu_torch.ops.topk import (
     PreparedItems,
     PreparedItemsInt8,
@@ -38,6 +38,8 @@ def launch_counters():
 __all__ = [
     "launch_counters",
     "embedding_lookup",
+    "get_impl",
+    "set_impl",
     "PreparedItems",
     "PreparedItemsInt8",
     "prepare_items",

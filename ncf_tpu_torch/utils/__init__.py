@@ -1,3 +1,4 @@
+from ncf_tpu_torch.utils.logging import MetricsLogger
 from ncf_tpu_torch.utils.config import (
     Config,
     DataConfig,
@@ -10,6 +11,7 @@ from ncf_tpu_torch.utils.config import (
 from ncf_tpu_torch.utils.device import resolve_device, torch_dtype
 
 __all__ = [
+    "MetricsLogger",
     "Config",
     "DataConfig",
     "MeshConfig",

@@ -98,7 +98,7 @@ def test_train_resume(tmp_path, capsys):
 def test_bad_override_and_unknown_command_fail():
     with pytest.raises((SystemExit, ValueError)):
         cli.main(["train", "--device", "cpu", "bogus.key=1"])
-    for cmd in ("doctor",):
+    for cmd in ("no-such-command",):
         with pytest.raises(SystemExit):
             cli.main([cmd])
 

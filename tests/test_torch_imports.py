@@ -53,11 +53,66 @@ def test_every_module_is_listed():
                  "ncf_tpu_torch.parallel.launch",
                  "ncf_tpu_torch.parallel.dryrun",
                  "ncf_tpu_torch.parallel.workers",
-                 "ncf_tpu_torch.train.sparse_sharded"):
+                 "ncf_tpu_torch.train.sparse_sharded",
+                 "ncf_tpu_torch.data.schemas", "ncf_tpu_torch.data.generators",
+                 "ncf_tpu_torch.naming", "ncf_tpu_torch.naming.parser",
+                 "ncf_tpu_torch.naming.prompts",
+                 "ncf_tpu_torch.naming.validators",
+                 "ncf_tpu_torch.naming.generator",
+                 "ncf_tpu_torch.naming.http_client",
+                 "ncf_tpu_torch.utils.monitoring",
+                 "ncf_tpu_torch.utils.profiling",
+                 "ncf_tpu_torch.utils.doctor"):
         assert name in mods
 
 
+# names of a JAX ``__all__`` with no port counterpart, and why
+ALL_EXCEPTIONS = {
+    ("parallel", "stacked_batch_sharding"):
+        "a jax NamedSharding for stacked [K, B] batches; a rank's batch "
+        "slice has no sharding object in PyTorch",
+}
+
+
+def _jax_packages():
+    import ncf_tpu
+
+    return sorted(m.name for m in pkgutil.walk_packages(
+        ncf_tpu.__path__, "ncf_tpu.") if m.ispkg) + ["ncf_tpu"]
+
+
+@pytest.mark.parametrize("jax_pkg", _jax_packages())
+def test_every_jax_export_has_a_port_counterpart(jax_pkg):
+    """Every name a JAX package ``__init__`` exports, the port's
+    counterpart package exports too (the stated exceptions aside)."""
+    import importlib
+
+    sub = jax_pkg.partition(".")[2]
+    ref = importlib.import_module(jax_pkg)
+    port = importlib.import_module(
+        "ncf_tpu_torch" + (f".{sub}" if sub else ""))
+    missing = sorted(n for n in getattr(ref, "__all__", [])
+                     if (sub, n) not in ALL_EXCEPTIONS
+                     and (n not in getattr(port, "__all__", [n])
+                          or not hasattr(port, n)))
+    assert missing == [], f"{port.__name__} lacks {missing}"
+
+
+def test_the_port_has_every_module_of_the_jax_package():
+    """Each module of ``ncf_tpu`` but the Pallas kernel files has a
+    counterpart of the same path under ``ncf_tpu_torch``."""
+    import ncf_tpu
+
+    ref = {m.name.partition(".")[2] for m in pkgutil.walk_packages(
+        ncf_tpu.__path__, "ncf_tpu.")}
+    port = {m.partition(".")[2] for m in _modules()}
+    kernels = {m for m in ref if m.startswith("ops.pallas_")}
+    built = {"native.libncf_native"}     # the C++ library, not a module
+    assert sorted(ref - kernels - built - port) == []
+
+
 def test_importing_the_port_loads_no_jax():
+    assert "ncf_tpu_torch.utils.doctor" in _modules()
     code = textwrap.dedent(f"""
         import importlib, sys
         for name in {_modules() + ["ncf_tpu_torch"]!r}:
