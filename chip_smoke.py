@@ -223,6 +223,11 @@ Phases (each asserts; any failure exits non-zero and prints no result):
 
     python3 chip_smoke.py --tools-only  # the kernels, then phase 22
 
+    python3 chip_smoke.py --gather-only  # the kernels, then B7 alone
+
+(B7's ptxas registers and spills, its cases against the plain version,
+NCF/NeuMF serving through it, its times at the three serving shapes.)
+
     python3 chip_smoke.py --gate   # builds the kernels, then only the gate
 
 runs every recipe (``indep40``, ``indep_seq``, ``joint`` at 24 epochs)
@@ -2596,6 +2601,53 @@ def _int8_cases(torch, topk, gen, dev):
     return n
 
 
+def _gather_cases(torch, gather, gen, dev):
+    """B7 bit for bit against ``gather_rows_ref``: the serving tables
+    (NeuMF, NCF) with 2-D, int32 and one-column ids; every row size of
+    the kernel's plans (4 to 2,048 bytes: one word, an odd count of
+    4-byte words, groups of 4 to 32 threads, a loop within the group);
+    a table view 4 bytes off 8-byte alignment (the narrow word); 0 ids
+    (no launch), 1, and counts off a block's rows; negative and
+    non-contiguous ids.  Each launch is counted.  Returns the cases."""
+    n7 = 0
+
+    def case(table, i, what):
+        nonlocal n7
+        n0 = gather.gather_rows.launches.value
+        got = gather.gather_rows(table, i)
+        torch.cuda.synchronize()
+        check(gather.gather_rows.launches.value == n0 + (i.numel() > 0),
+              f"B7 {what}: launches counted wrong")
+        check(torch.equal(got, gather.gather_rows_ref(table, i)),
+              f"B7 {what} {tuple(table.shape)} {table.dtype} ids "
+              f"{tuple(i.shape)} {i.dtype}: kernel != plain version")
+        n7 += 1
+
+    for rows, d, dtype in ((3706, 64, torch.float32), (6040, 64, torch.float32),
+                           (3706, 64, torch.bfloat16),
+                           (1682, 32, torch.bfloat16),
+                           (1000, 34, torch.bfloat16), (500, 3, torch.float32)):
+        table = torch.randn((rows, d), generator=gen, device=dev).to(dtype)
+        ids = torch.randint(0, rows, (64, 3706), generator=gen, device=dev)
+        for i in (ids, ids.to(torch.int32), ids[:, :1]):
+            case(table, i, "serving")
+    for row_bytes in (4, 12, 64, 68, 128, 256, 512, 516, 2048):
+        table = torch.randn((3001, row_bytes // 4), generator=gen,
+                            device=dev)
+        for n in (1, 255, 257, 40_003):
+            ids = torch.randint(-3001, 3001, (n,), generator=gen, device=dev)
+            case(table, ids, f"{row_bytes}-byte rows, n {n}")
+            case(table, ids.to(torch.int32), f"{row_bytes}-byte rows, n {n}")
+    big = torch.randn((4001, 33), generator=gen, device=dev)
+    table = big[1:]                               # 132 bytes in
+    check(table.data_ptr() % 8 == 4, "B7: the offset view is 8-aligned")
+    ids = torch.randint(-4000, 4000, (64, 3706), generator=gen, device=dev)
+    for i in (ids, ids.t(), ids[:, ::3], ids.to(torch.int32).t(),
+              ids[:0]):
+        case(table, i, "a view 4 bytes off, negative ids")
+    return n7
+
+
 def phase_slice4_kernels_vs_plain(torch, topk):
     """B6 and B7 bit for bit against their plain versions; B8 and B9
     through ``compare_topk`` with the queries in f32 (both kernels keep
@@ -2612,21 +2664,10 @@ def phase_slice4_kernels_vs_plain(torch, topk):
     log(f"kernel_vs_plain: topk_scores_streaming_int8 {n6} cases equal bit "
         f"for bit ({time.perf_counter() - t0:.1f} s)")
 
-    n7 = 0
-    for rows, d, dtype in ((3706, 64, torch.float32), (6040, 64, torch.float32),
-                           (3706, 64, torch.bfloat16),
-                           (1682, 32, torch.bfloat16),
-                           (1000, 34, torch.bfloat16), (500, 3, torch.float32)):
-        table = torch.randn((rows, d), generator=gen, device=dev).to(dtype)
-        ids = torch.randint(0, rows, (64, 3706), generator=gen, device=dev)
-        for i in (ids, ids.to(torch.int32), ids[:, :1]):
-            got = gather.gather_rows(table, i)
-            torch.cuda.synchronize()
-            check(torch.equal(got, gather.gather_rows_ref(table, i)),
-                  f"B7 [{rows}, {d}] {dtype} ids {tuple(i.shape)} "
-                  f"{i.dtype}: kernel != plain version")
-            n7 += 1
-    log(f"kernel_vs_plain: gather_rows {n7} cases equal bit for bit")
+    t0 = time.perf_counter()
+    n7 = _gather_cases(torch, gather, gen, dev)
+    log(f"kernel_vs_plain: gather_rows {n7} cases equal bit for bit "
+        f"({time.perf_counter() - t0:.1f} s)")
 
     t0 = time.perf_counter()
     n8 = n9 = swaps = 0
@@ -3046,6 +3087,91 @@ def phase_serving_ncf(torch, ModelServer, Config):
     return b7.value, summary
 
 
+def _ptxas_report(_kernels, name):
+    """``nvcc -Xptxas -v`` of ``csrc/<name>.cu``: each kernel's registers,
+    spills and shared memory, as ptxas prints them."""
+    src = os.path.join(os.path.dirname(_kernels.__file__), "csrc",
+                       name + ".cu")
+    out = os.path.join(_kernels.BUILD_DIR, f"ptxas_{name}.so")
+    r = subprocess.run([_kernels._nvcc(), *_kernels.NVCC_FLAGS, "-Xptxas",
+                        "-v", "-o", out, src], capture_output=True,
+                       text=True, timeout=300)
+    check(r.returncode == 0, f"nvcc -Xptxas -v {name}: {r.stderr}")
+    return " | ".join(line.strip() for line in
+                      (r.stdout + r.stderr).splitlines()
+                      if "registers" in line or "spill" in line
+                      or "Compiling entry" in line)
+
+
+def enqueue_us(fn, iters=50):
+    """Host microseconds a call of ``fn`` takes to return (the launch's
+    enqueue; the card is left to finish afterwards)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    us = (time.perf_counter() - t0) / iters * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def _time_gather(torch, gather, gen, dev, rounds=2):
+    """B7 at NeuMF's and NCF's serving scans (64 users x 3706 candidates):
+    [3706, 64] f32 (256-byte rows), [3706, 64] bf16 (128) and [1682, 32]
+    bf16 (64).  Each round times, in turn, the kernel, ``index_select``
+    (the library call) and the plain version, by CUDA events over 50
+    calls and by the profiler's device time, and the kernel's host
+    enqueue µs a call.  Returns a row a shape."""
+    out = []
+    ids = torch.randint(0, 3706, (64, 3706), generator=gen, device=dev,
+                        dtype=torch.int32)
+    n = ids.numel()
+    for rows_, d, dtype in ((3706, 64, torch.float32),
+                            (3706, 64, torch.bfloat16),
+                            (1682, 32, torch.bfloat16)):
+        table = torch.randn((rows_, d), generator=gen, device=dev).to(dtype)
+        i = ids % rows_ if rows_ != 3706 else ids
+        fi = i.reshape(-1)
+        row_bytes = d * table.element_size()
+        bound, by = _bound(n * 4 + n * row_bytes + table.numel()
+                           * table.element_size(), 0, PEAK_FLOP_S["float32"])
+        call = functools.partial(gather.gather_rows, table, i)
+        lib = functools.partial(torch.index_select, table, 0, fi)
+        plain = functools.partial(gather.gather_rows_ref, table, i)
+        t = {"ms": [], "device_ms": [], "host_us": [], "library_ms": [],
+             "library_device_ms": [], "plain_ms": []}
+        for _ in range(rounds):
+            t["ms"].append(cuda_ms(call, 50))
+            t["device_ms"].append(device_split(call)[0])
+            t["host_us"].append(enqueue_us(call))
+            t["library_ms"].append(cuda_ms(lib, 50))
+            t["library_device_ms"].append(device_split(lib)[0])
+            t["plain_ms"].append(cuda_ms(plain, 50))
+        plan = gather.launch_plan(
+            row_bytes, table.data_ptr(), call().data_ptr(), n,
+            gather._sm_count(torch.cuda.current_device()))
+        row = {"kernel": "gather_rows",
+               "shape": f"[{rows_}, {d}] {str(dtype)[6:]} x {n} ids",
+               "bound_ms": bound, "bound_by": by, "plan": plan._asdict(),
+               "rounds": t}
+        for k, v in t.items():
+            v = [x for x in v if x is not None]   # None: not measured
+            row[k] = sum(v) / len(v) if v else None
+        row["share_of_bound_events"] = bound / row["ms"]
+        row["share_of_bound_device"] = (bound / row["device_ms"]
+                                        if row["device_ms"] else None)
+        out.append(row)
+        log(f"timing: gather_rows [{row['shape']}] CUDA events "
+            f"{t['ms']} ms, device {t['device_ms']} ms, host "
+            f"{t['host_us']} us a call; index_select {t['library_ms']} "
+            f"[{t['library_device_ms']}] ms; plain {t['plain_ms']} ms; "
+            f"bound {bound!r} ms ({by}); plan {json.dumps(row['plan'])}")
+    return out
+
+
 def phase_timing_slice4(torch, topk):
     """B6, B8 and B9 at the bigvocab serving shape (B=64, 4M items, D=64;
     B6 also at B=1) and B7 at NeuMF's scan (3706 x 64 f32, 64 users x
@@ -3148,20 +3274,7 @@ def phase_timing_slice4(torch, topk):
                                   B, I, D, "float32")})
     del items, bias, qs, q
     torch.cuda.empty_cache()
-    table = torch.randn((3706, 64), generator=gen, device=dev)
-    ids = torch.randint(0, 3706, (64, 3706), generator=gen, device=dev,
-                        dtype=torch.int32)
-    n = ids.numel()
-    bound, by = _bound(n * 4 + n * 64 * 4 + table.numel() * 4, 0, f32)
-    call = functools.partial(gather.gather_rows, table, ids)
-    flat = ids.reshape(-1)
-    lib = functools.partial(torch.index_select, table, 0, flat)
-    rows.append({"kernel": "gather_rows", "shape": f"[3706, 64] f32 x {n} ids",
-                 "ms": cuda_ms(call, 50), **_device_fields(call, lib),
-                 "plain_ms": cuda_ms(lambda: gather.gather_rows_ref(table, ids),
-                                     50),
-                 "library_ms": cuda_ms(lib, 50),
-                 "bound_ms": bound, "bound_by": by})
+    rows += _time_gather(torch, gather, gen, dev)
     for r in rows:
         was = (f" (CUDA-core version: {r['cuda_core_ms']!r} ms; device "
                f"by pass "
@@ -6104,6 +6217,27 @@ def main() -> int:
             log(f"phase gate {gate_s:.1f} s (every recipe at its N seeds)")
         gate_s, _ = phase_gate_bigvocab(torch, card)
         log(f"phase gate[bigvocab] {gate_s:.1f} s")
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
+    if "--gather-only" in sys.argv[1:]:
+        # B7 alone: its registers and spills, its cases against the plain
+        # version, NCF/NeuMF serving through it, its times
+        from ncf_tpu_torch.ops import gather
+
+        log("build: gather " + _ptxas_report(_kernels, "gather"))
+        dev = torch.device("cuda")
+        gen = torch.Generator(device=dev).manual_seed(4321)
+        t0 = time.perf_counter()
+        n7 = _gather_cases(torch, gather, gen, dev)
+        log(f"kernel_vs_plain: gather_rows {n7} cases equal bit for bit "
+            f"({time.perf_counter() - t0:.1f} s)")
+        b7, ncf_summary = phase_serving_ncf(torch, ModelServer, Config)
+        log(f"serving_ncf: B7 launches {b7}; " + json.dumps(ncf_summary))
+        log("gather_timing_json: " + json.dumps(_time_gather(
+            torch, gather, torch.Generator(device=dev).manual_seed(77),
+            dev)))
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}), flush=True)

@@ -25,7 +25,7 @@ import shutil
 import subprocess
 import threading
 import time
-from typing import Dict, Sequence, Tuple
+from typing import Callable, Dict, Sequence, Tuple
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
@@ -132,17 +132,27 @@ _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "l": ctypes.c_longlong,
            "f": ctypes.c_float}
 
 
+# (library, C function, signature) -> the bound function
+_bound: Dict[Tuple[str, str, str], Callable[..., int]] = {}
+
+
 def bind(name: str, fn_name: str, signature: str):
     """``fn_name`` of ``csrc/<name>.cu`` with its argument types declared
     from ``signature`` (one code of ``_CTYPES`` per argument), returning a
-    CUDA error code.  Every library exports ``ncf_cuda_error_string``."""
+    CUDA error code.  Every library exports ``ncf_cuda_error_string``.
+    Bound once a process: later calls read a dict, without a lock."""
+    key = (name, fn_name, signature)
+    fn = _bound.get(key)
+    if fn is not None:
+        return fn
     lib = library(name)
-    fn = getattr(lib, fn_name)
-    if fn.argtypes is None:
+    with _lock:
+        fn = getattr(lib, fn_name)
         lib.ncf_cuda_error_string.argtypes = [ctypes.c_int]
         lib.ncf_cuda_error_string.restype = ctypes.c_char_p
         fn.restype = ctypes.c_int
         fn.argtypes = [_CTYPES[c] for c in signature]
+        _bound[key] = fn
     return fn
 
 
@@ -157,11 +167,23 @@ def launch(name: str, fn_name: str, signature: str, *args) -> None:
         raise RuntimeError(f"{fn_name} launch failed: {msg} ({err})")
 
 
+def on_device(device):
+    """``torch.cuda.device(device)`` where ``device`` is a card other than
+    the current one, else a context that does nothing (a CPU device
+    touches no CUDA).  Every wrapper enters its kernel's device so."""
+    import torch
+
+    idx = device.index
+    if idx is None or idx == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(idx)
+
+
 def stream_of(t) -> int:
     """The handle of the current CUDA stream on ``t``'s device."""
     import torch
 
-    return torch.cuda.current_stream(t.device).cuda_stream
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 class LaunchCounter:

@@ -15,10 +15,50 @@ sum, where the reference rounds at every add.
 
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple
+
 import torch
 
 from ncf_tpu_torch.ops import _kernels
 from ncf_tpu_torch.ops.scatter import onehot_scatter_add
+
+# csrc/gather.cu's constants: threads a block, the blocks an SM holds at
+# least (its ``__launch_bounds__``)
+THREADS = 256
+BLOCKS_PER_SM = 4
+# a warp copies 32 rows at a time (one coalesced load of their ids)
+ROWS_PER_BLOCK = THREADS
+
+
+class GatherPlan(NamedTuple):
+    """How ``csrc/gather.cu`` copies rows: ``width`` bytes a word,
+    ``group`` threads a row (``1 << tlog``), ``grid`` blocks of
+    ``ROWS_PER_BLOCK`` rows a pass."""
+    width: int
+    tlog: int
+    grid: int
+
+    @property
+    def group(self) -> int:
+        return 1 << self.tlog
+
+
+def launch_plan(row_bytes: int, table_ptr: int, out_ptr: int, n: int,
+                sms: int) -> GatherPlan:
+    """The kernel's plan for ``n`` rows of ``row_bytes`` (a multiple of
+    4) between the two base addresses on a card of ``sms`` SMs: the
+    widest word (16, 8 or 4 bytes) that divides the row and both
+    addresses; a group of the row's words rounded up to a power of two,
+    at most 32 threads; a grid of what the rows need, at most what the
+    card holds resident."""
+    width = next(w for w in (16, 8, 4)
+                 if row_bytes % w == 0 and table_ptr % w == 0
+                 and out_ptr % w == 0)
+    words = row_bytes // width
+    tlog = min(5, (words - 1).bit_length())
+    grid = max(1, min(-(-n // ROWS_PER_BLOCK), sms * BLOCKS_PER_SM))
+    return GatherPlan(width, tlog, grid)
 
 
 def gather_rows_ref(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
@@ -26,32 +66,59 @@ def gather_rows_ref(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     return table[ids.long()]
 
 
+_sms = {}
+_IDS = (torch.int32, torch.int64)
+
+
+def _sm_count(device_index: int) -> int:
+    n = _sms.get(device_index)
+    if n is None:
+        n = _sms[device_index] = torch.cuda.get_device_properties(
+            device_index).multi_processor_count
+    return n
+
+
+@functools.lru_cache(maxsize=512)
+def _plan(row_bytes: int, align: int, n: int, sms: int) -> GatherPlan:
+    # ``align``: the low bits of both addresses ORed; a word divides both
+    # addresses exactly when it divides that
+    return launch_plan(row_bytes, align, align, n, sms)
+
+
 def _gather_cuda(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    # the host's work a call, which paces back-to-back calls of this
+    # µs-sized kernel: no copy of contiguous inputs, the output allocated
+    # in its final shape, the plan cached, the C function bound once
     if table.dim() != 2:
         raise ValueError(
             f"gather takes a [N, D] table, got {tuple(table.shape)}")
-    if ids.dtype not in (torch.int32, torch.int64):
+    if ids.dtype not in _IDS:
         raise TypeError(f"gather takes int32/int64 ids, got {ids.dtype}")
     if ids.device != table.device:
         raise ValueError("table and ids must share one device")
-    table = table.contiguous()
-    row_bytes = table.shape[1] * table.element_size()
-    if row_bytes % 4 or table.data_ptr() % 4:
+    if not table.is_contiguous():
+        table = table.contiguous()
+    rows, d = table.shape
+    row_bytes = d * table.element_size()
+    tp = table.data_ptr()
+    if row_bytes % 4 or tp % 4:
         raise ValueError(f"gather kernel takes rows of a multiple of 4 "
-                         f"bytes, got {row_bytes} ({table.dtype} x "
-                         f"{table.shape[1]})")
-    flat = ids.reshape(-1).contiguous()
-    out = torch.empty((flat.numel(), table.shape[1]), dtype=table.dtype,
-                      device=table.device)
-    if flat.numel():
-        with torch.cuda.device(table.device):
+                         f"bytes, got {row_bytes} ({table.dtype} x {d})")
+    if not ids.is_contiguous():
+        ids = ids.contiguous()
+    out = table.new_empty((*ids.shape, d))
+    n = ids.numel()
+    if n:
+        op = out.data_ptr()
+        p = _plan(row_bytes, (tp | op) & 15, n,
+                  _sm_count(table.get_device()))
+        with _kernels.on_device(table.device):
             _kernels.launch(
-                *C_ENTRY, table.data_ptr(), flat.data_ptr(),
-                int(flat.dtype == torch.int64), flat.numel(), row_bytes,
-                table.shape[0],
-                out.data_ptr(), _kernels.stream_of(table))
-            gather_rows.launches.add()
-    return out.reshape(*ids.shape, table.shape[1])
+                *C_ENTRY, tp, ids.data_ptr(), int(ids.dtype == torch.int64),
+                n, row_bytes, rows, p.width, p.tlog, p.grid, op,
+                _kernels.stream_of(table))
+        gather_rows.launches.add()
+    return out
 
 
 def gather_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
@@ -71,7 +138,7 @@ def gather_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
 
 gather_rows.launches = _kernels.LaunchCounter()
 # (library, C function, argument codes of ``_kernels.bind``)
-C_ENTRY = ("gather", "ncf_gather", "ppilil" + "pp")
+C_ENTRY = ("gather", "ncf_gather", "ppilil" + "iii" + "pp")
 
 
 class _PallasLookup(torch.autograd.Function):

@@ -89,7 +89,7 @@ def _tree_sample_cuda(u, pos, cdf, num_items, neg):
     pos = pos.to(torch.int32).contiguous()
     cdf = cdf.contiguous()
     out = torch.empty((N,), dtype=torch.int32, device=u.device)
-    with torch.cuda.device(u.device):
+    with _kernels.on_device(u.device):
         _kernels.launch(
             *C_ENTRY, u.data_ptr(), R, N, pos.data_ptr(), neg, cdf.shape[0],
             cdf.data_ptr(), num_items, out.data_ptr(), _kernels.stream_of(u))

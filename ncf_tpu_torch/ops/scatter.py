@@ -130,7 +130,7 @@ def _scatter_cuda(ids, grads, num_rows, mode):
     n = sorted_ids.numel()
     longs = torch.empty(1 + n // (_LONG_RUN + 1), dtype=torch.int32,
                         device=grads.device)
-    with torch.cuda.device(grads.device):
+    with _kernels.on_device(grads.device):
         _kernels.launch(
             *C_ENTRY, sorted_ids.data_ptr(), perm.data_ptr(),
             grads.data_ptr(), 0 if grads.dtype == torch.float32 else 1, n,

@@ -59,7 +59,7 @@ def _lookup_sum_cuda(ids, tables):
     args = []
     for k in range(MAX_TABLES):
         args += ([ts[k].data_ptr(), ts[k].shape[0]] if k < K else [None, 0])
-    with torch.cuda.device(dev):
+    with _kernels.on_device(dev):
         _kernels.launch(*C_ENTRY, ids.data_ptr(), K, B, dt, *args,
                         out.data_ptr(), _kernels.stream_of(ids))
     fused_lookup_sum.launches.add()

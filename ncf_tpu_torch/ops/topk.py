@@ -394,7 +394,7 @@ def _streaming_cuda(q, table, bias, num_items, k, seg_width, seg_top,
     vals = torch.empty((B, k), dtype=torch.float32, device=dev)
     ids = torch.empty((B, k), dtype=torch.int32, device=dev)
     dtype_code = 0 if table.dtype == torch.float32 else 1
-    with torch.cuda.device(dev):
+    with _kernels.on_device(dev):
         for start in range(0, B, rows):
             n = min(rows, B - start)
             _kernels.launch(
@@ -665,7 +665,7 @@ def _streaming_int8_cuda(q8, items, k, seg_top):
     vals = torch.empty((B, k), dtype=torch.float32, device=dev)
     ids = torch.empty((B, k), dtype=torch.int32, device=dev)
     q_scale = items.q_scale.to(torch.float32).reshape(1).contiguous()
-    with torch.cuda.device(dev):
+    with _kernels.on_device(dev):
         for start in range(0, B, rows):
             n = min(rows, B - start)
             _kernels.launch(
@@ -793,7 +793,7 @@ def _exact_cuda(q, items, bias, k, early):
     vals = torch.empty((B, k), dtype=torch.float32, device=dev)
     ids = torch.empty((B, k), dtype=torch.int32, device=dev)
     dtype_code = 0 if items.dtype == torch.float32 else 1
-    with torch.cuda.device(dev):
+    with _kernels.on_device(dev):
         for start in range(0, B, rows):
             n = min(rows, B - start)
             _kernels.launch(
@@ -916,7 +916,7 @@ def _segmax_cuda(q, items, bias, block_items, seg_width):
     keys = torch.empty((B, ipad // seg_width), dtype=torch.int32, device=dev)
     if B == 0:
         return keys
-    with torch.cuda.device(dev):
+    with _kernels.on_device(dev):
         _kernels.launch(
             *SEGMAX_ENTRY, q.data_ptr(), items.data_ptr(),
             bias.data_ptr() if bias is not None else None,

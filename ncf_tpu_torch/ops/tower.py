@@ -245,7 +245,7 @@ def _fwd_cuda(x2, seed, flat, rate):
                       device=x2.device)
     use, thr, inv = _keep_args(rate)
     cdims = _c_dims(dims)
-    with torch.cuda.device(x2.device):
+    with _kernels.on_device(x2.device):
         _kernels.launch(*C_FWD, x2.data_ptr(), ctypes.addressof(ptrs),
                         ctypes.addressof(cdims), len(dims) - 1, x2.shape[0],
                         seed.data_ptr(), use, thr, inv, out.data_ptr(),
@@ -272,7 +272,7 @@ def _bwd_cuda(x2, dy, seed, flat, rate):
     dx = torch.empty((rows, dims[0]), dtype=torch.bfloat16, device=x2.device)
     use, thr, inv = _keep_args(rate)
     cdims = _c_dims(dims)
-    with torch.cuda.device(x2.device):
+    with _kernels.on_device(x2.device):
         _kernels.launch(*C_BWD, x2.data_ptr(), dy.data_ptr(),
                         ctypes.addressof(ptrs), ctypes.addressof(cdims),
                         len(dims) - 1, rows, seed.data_ptr(), use, thr, inv,

@@ -70,20 +70,20 @@ class Mesh:
         self.dcn_index, self.ici_index = divmod(self.rank, int(ici))
         self.backend = multihost.backend() if self.distributed else None
         self.host_staged = self.backend == "gloo"
+        # each axis's group by its key in multihost (None: the world's
+        # default group); the mesh holds no group handle of its own, so
+        # ``multihost.destroy`` can drop them all
         self._groups = {WORLD: None, ICI_AXIS: None, DCN_AXIS: None}
         if self.distributed:
-            import torch.distributed as dist
-
-            self._groups[WORLD] = dist.group.WORLD
             # every rank creates every group, in the same order
             for d in range(dcn):
                 ranks = [d * ici + i for i in range(ici)]
-                g = dist.new_group(ranks) if ici > 1 else None
+                g = multihost.new_group(ranks) if ici > 1 else None
                 if d == self.dcn_index:
                     self._groups[ICI_AXIS] = g
             for i in range(ici):
                 ranks = [d * ici + i for d in range(dcn)]
-                g = dist.new_group(ranks) if dcn > 1 else None
+                g = multihost.new_group(ranks) if dcn > 1 else None
                 if i == self.ici_index:
                     self._groups[DCN_AXIS] = g
 
@@ -127,7 +127,7 @@ class Mesh:
         import torch.distributed as dist
 
         buf = self._staged(t).contiguous()
-        dist.all_reduce(buf, group=self._groups[axis])
+        dist.all_reduce(buf, group=multihost.group(self._groups[axis]))
         return buf if buf.device == t.device else buf.to(t.device)
 
     def all_gather(self, t: torch.Tensor, axis: str) -> torch.Tensor:
@@ -143,7 +143,7 @@ class Mesh:
         # all_gather_single is all_gather_into_tensor's newer name
         gather = getattr(dist, "all_gather_single", None) or \
             dist.all_gather_into_tensor
-        gather(out, src, group=self._groups[axis])
+        gather(out, src, group=multihost.group(self._groups[axis]))
         return out if out.device == t.device else out.to(t.device)
 
     def all_to_all(self, t: torch.Tensor, axis: str) -> torch.Tensor:
@@ -155,7 +155,8 @@ class Mesh:
 
         src = self._staged(t).contiguous()
         out = self._out_like(src, src.shape)
-        dist.all_to_all_single(out, src, group=self._groups[axis])
+        dist.all_to_all_single(out, src,
+                               group=multihost.group(self._groups[axis]))
         return out if out.device == t.device else out.to(t.device)
 
     def barrier(self) -> None:

@@ -30,7 +30,7 @@ import os
 import subprocess
 import sys
 import time
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -121,7 +121,11 @@ def initialize_distributed(
     d.init_process_group(
         name, init_method=init_method or "env://", world_size=world, rank=r,
         timeout=datetime.timedelta(seconds=timeout_s))
-    print(f"[rank {r}/{world}] backend {name} on {dev}: {rule}", flush=True)
+    # one write: under unbuffered output ``print`` writes the text and the
+    # newline apart, and ranks that share a pipe (``torch.distributed.run``
+    # hands its own on) then run two ranks' lines into one
+    sys.stdout.write(f"[rank {r}/{world}] backend {name} on {dev}: {rule}\n")
+    sys.stdout.flush()
     return r, world
 
 
@@ -160,7 +164,39 @@ def mesh_shape_for_hosts(devices_per_host: Optional[int] = None
     return max(1, world // per_host), per_host
 
 
+# the process groups ``new_group`` made, by their ranks: the one place a
+# handle to a group lives outside torch.distributed (see ``destroy``)
+_GROUPS: Dict[Tuple[int, ...], object] = {}
+
+
+def new_group(ranks: Sequence[int]) -> Tuple[int, ...]:
+    """Make the process group of ``ranks`` (every rank of the world calls
+    this, in the same order) and return its key for ``group``."""
+    key = tuple(int(r) for r in ranks)
+    _GROUPS[key] = _dist().new_group(list(key))
+    return key
+
+
+def group(key: Optional[Tuple[int, ...]]):
+    """The process group ``new_group`` returned ``key`` for; ``None`` is
+    the world (torch.distributed's default group)."""
+    if key is None:
+        return None
+    try:
+        return _GROUPS[key]
+    except KeyError:
+        raise RuntimeError(f"no process group of ranks {key}: it was "
+                           "destroyed, or never made") from None
+
+
 def destroy() -> None:
+    """Drop every group handle, then destroy the process group.  The
+    handles go first so that gloo's groups are torn down here, inside
+    ``destroy_process_group``: a handle that outlives it is destroyed at
+    interpreter exit, where gloo's teardown now and then aborts the
+    process (``terminate called without an active exception``, exit
+    -6)."""
+    _GROUPS.clear()
     if is_initialized():
         _dist().destroy_process_group()
 

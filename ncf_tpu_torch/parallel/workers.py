@@ -19,6 +19,7 @@ from __future__ import annotations
 import json
 import os
 import sys
+import time
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -432,6 +433,7 @@ def main(argv=None) -> int:
     ap.add_argument("--dcn", type=int, default=1)
     ap.add_argument("--device", default="cuda")
     ns = ap.parse_args(rest)
+    t0 = time.perf_counter()
     torch.set_num_threads(1)
     torch.set_float32_matmul_precision("highest")
     multihost.initialize_distributed(
@@ -443,6 +445,8 @@ def main(argv=None) -> int:
         TASKS[ns.task](mesh, ns.io, dev)
     finally:
         multihost.destroy()
+    print(f"[rank {rank}/{world}] {ns.task} took "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     return 0
 
 

@@ -10,8 +10,17 @@
 - ``dryrun_multichip(4)`` prints every token of the reference's dryrun.
 - Two processes loading the native library at once into an empty build
   directory: exactly one compiles, both load it.
+- ``multihost.destroy`` on 2 gloo ranks of a ``(1, 2)`` mesh leaves no
+  process group alive, though the mesh is: a group handle that outlives
+  ``destroy_process_group`` is torn down at interpreter exit, where gloo
+  now and then aborts the rank (``terminate called without an active
+  exception``, exit -6), which failed a two-rank test now and then.
+- ``initialize_distributed`` writes a rank's backend line in one write,
+  so ranks sharing ``torch.distributed.run``'s pipe under unbuffered
+  output do not run their lines into one.
 """
 
+import json
 import os
 import subprocess
 import sys
@@ -114,3 +123,74 @@ def test_concurrent_native_builds_compile_once(tmp_path):
     assert said == ["built", "reused"], outs
     assert os.path.exists(tmp_path / "libncf_native.so")
     assert not [f for f in os.listdir(tmp_path) if f.endswith(".tmp")]
+
+
+def test_destroy_leaves_no_process_group_alive(tmp_path):
+    code = textwrap.dedent(f"""
+        import gc, sys, weakref
+        import torch
+        import torch.distributed.distributed_c10d as c10d
+        from ncf_tpu_torch.parallel import multihost
+        from ncf_tpu_torch.parallel.mesh import ICI_AXIS, make_mesh
+
+        rank = int(sys.argv[1])
+        multihost.initialize_distributed(
+            init_method="file://{tmp_path}/store", world_size=2, rank=rank,
+            device="cpu", timeout_s=60)
+        mesh = make_mesh(dcn=1, ici=2)
+        x = torch.arange(4.0) + rank
+        got = mesh.all_to_all(mesh.all_reduce(x.clone()), ICI_AXIS)
+        assert got.tolist() == ([1.0, 3.0] * 2 if rank == 0 else [5.0, 7.0] * 2)
+        groups = [weakref.ref(g) for g in list(c10d._world.pg_map)]
+        assert len(groups) >= 2                  # the world and the ici group
+        multihost.destroy()                      # the mesh is still alive
+        gc.collect()
+        print("alive", sum(r() is not None for r in groups), len(groups))
+    """)
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    procs = [subprocess.Popen([sys.executable, "-c", code, str(r)], env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for r in range(2)]
+    outs = [p.communicate(timeout=120) for p in procs]
+    assert all(p.returncode == 0 for p in procs), outs
+    for out, _ in outs:
+        alive = out.split("alive")[-1].split()
+        assert alive[0] == "0", (f"{alive[0]} of {alive[1]} process groups "
+                                 f"outlive multihost.destroy()", outs)
+
+
+def test_backend_line_is_one_write(tmp_path):
+    # print() writes the text and the newline apart; with two ranks on
+    # one unbuffered pipe that let their lines run together
+    child = textwrap.dedent(f"""
+        import json, sys
+        from ncf_tpu_torch.parallel import multihost
+
+        class Recorder:
+            def __init__(self):
+                self.writes = []
+
+            def write(self, s):
+                self.writes.append(s)
+                return len(s)
+
+            def flush(self):
+                pass
+
+        rec, real = Recorder(), sys.stdout
+        sys.stdout = rec
+        multihost.initialize_distributed(
+            world_size=1, rank=0, device="cpu",
+            init_method="file://{tmp_path / 'store'}")
+        sys.stdout = real
+        multihost.destroy()
+        print(json.dumps(rec.writes))
+    """)
+    env = dict(os.environ, PYTHONPATH=ROOT, PYTHONUNBUFFERED="1")
+    run = subprocess.run([sys.executable, "-c", child], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert run.returncode == 0, run.stderr[-3000:]
+    writes = json.loads(run.stdout.splitlines()[-1])
+    lines = [w for w in writes if "backend" in w]
+    assert len(lines) == 1 and lines[0].startswith("[rank 0/1] backend gloo")
+    assert lines[0].endswith("\n") and lines[0].count("\n") == 1, writes

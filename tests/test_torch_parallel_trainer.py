@@ -17,6 +17,7 @@ against the port's one process.
 import glob
 import json
 import os
+import time
 
 import numpy as np
 import pytest
@@ -38,12 +39,40 @@ from ncf_tpu_torch.utils.config import Config  # noqa: E402
 STEP_REL = 5e-5
 
 
-def _leaf_close(got, want, rel, what, floor=1e-12):
+def _leaf_close(got, want, rel, what, floor=1e-12, ranks=""):
     got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
     assert got.shape == want.shape, what
     tol = max(rel * np.abs(want).max(), floor)
-    assert np.abs(got - want).max() <= tol, (what, np.abs(got - want).max(),
-                                            tol)
+    err = np.abs(got - want)
+    at = np.unravel_index(int(err.argmax()), err.shape) if err.size else ()
+    assert err.max() <= tol, (
+        f"{what}: max |2 ranks - 1| {err.max():.3g} at {at} (values "
+        f"{got[at]!r}, {want[at]!r}) > {tol:.3g} = {rel} x the leaf's "
+        f"largest, {err.max() / tol:.3g} x the tolerance; {ranks}")
+
+
+def _losses_close(got, want, rtol, ranks):
+    """``assert_allclose(got, want, rtol)`` on every logged step's loss,
+    the failing step and its relative error named."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    assert got.shape == want.shape, (
+        f"{got.size} logged steps against {want.size}; {ranks}")
+    ok = np.isclose(got, want, rtol=rtol, atol=0, equal_nan=True)
+    i = int(np.argmin(ok))
+    assert ok[i], (
+        f"step {i + 1}: loss {got[i]!r} against {want[i]!r}, relative "
+        f"error {abs(got[i] - want[i]) / abs(want[i]):.3g} > {rtol}; "
+        f"{ranks}")
+
+
+def _run_timed(task, world, io):
+    """``workers.run`` with each rank's wall time (for the messages)."""
+    t0 = time.perf_counter()
+    texts = workers.run(task, world, io, device="cpu")
+    took = [line for t in texts for line in t.splitlines()
+            if " took " in line]
+    return (f"ranks' wall time {time.perf_counter() - t0:.1f} s "
+            f"({'; '.join(took)})")
 
 
 def _flat(tree, prefix):
@@ -157,20 +186,21 @@ def test_sparse_trainer_on_two_ranks_matches_one(tmp_path):
     io = str(tmp_path / "io")
     workers.save_inputs(io, {}, {"config": cfg_for(2).to_dict(),
                                  "interactions": SPARSE_LOG})
-    workers.run("trainer", 2, io, device="cpu")
+    ranks = _run_timed("trainer", 2, io)
     out, res = workers.load_outputs(io, 0)
-    np.testing.assert_allclose(_losses(str(tmp_path / "m2.jsonl")),
-                               _losses(str(tmp_path / "m1.jsonl")),
-                               rtol=1e-5)
+    _losses_close(_losses(str(tmp_path / "m2.jsonl")),
+                  _losses(str(tmp_path / "m1.jsonl")), 1e-5, ranks)
     for p, one in _leaves_with_path(t1.params):
-        _leaf_close(out[f"params.{p}"], one.numpy(), STEP_REL, p)
-    assert res["step"] == t1.global_step
+        _leaf_close(out[f"params.{p}"], one.numpy(), STEP_REL, p,
+                    ranks=ranks)
+    assert res["step"] == t1.global_step, ranks
     ck = tckpt.find_latest(str(tmp_path / "c2"))
     man = json.load(open(os.path.join(ck, "manifest.json")))
     assert man["leaves"]["opt_state.user_acc"]["kind"] == "sharded"
     acc = np.concatenate([np.load(os.path.join(ck, sh["file"])) for sh in
                           man["leaves"]["opt_state.user_acc"]["shards"]])
-    _leaf_close(acc, t1.opt_state["user_acc"].numpy(), STEP_REL, "user_acc")
+    _leaf_close(acc, t1.opt_state["user_acc"].numpy(), STEP_REL, "user_acc",
+                ranks=ranks)
 
 
 # ------------------------------------------------------------ evaluators
