@@ -25,7 +25,10 @@ Phases (each asserts; any failure exits non-zero and prints no result):
    NaN, duplicates, N of 3 to 65,536, catalogs over 12,288 items); the scatter-add (B2) bit for bit against its plain
    version run on the CPU and against a second call, in every mode and
    gradient dtype, at the step's shapes and at edge shapes (no ids, every
-   id out of range, one id 81,920 times, a Zipf skew);
+   id out of range, one id 81,920 times, a Zipf skew), in every mode at
+   its routes' edges (``ROW_LIMIT`` rows and one more, n not a multiple
+   of the chunk, int64 ids, runs of hundreds at D 200), and its
+   pre-grouped entry (the sparse combine's);
    the fused tower's forward (B4f) and backward (B4b) at the three tower
    shapes of the training steps, with dropout 0 and 0.2, and at edge
    shapes (identical dropout zeros); the int8 streaming top-k (B6) bit for
@@ -108,10 +111,11 @@ Phases (each asserts; any failure exits non-zero and prints no result):
    ``off`` in both candidate modes and for config B; each training
    kernel's time (CUDA events, and device time from the profiler) beside
    its plain version, its library call (or, for B4, the plain layers of
-   ``off``) and its bound (B2 with its sort's device time, the library's
-   deterministic route for its function and, for the item table, its
-   atomic version's time; B1 for the pooled and the iid draw; B1 and B3
-   beside an empty kernel's time);
+   ``off``) and its bound (B2 at each of the step's seven launches with
+   its grouping's device time, each device op, the host's µs a call and
+   the library's deterministic route for its function, and no sort
+   kernel among the ops of a table up to ``ROW_LIMIT`` rows; B1 for the
+   pooled and the iid draw; B1 and B3 beside an empty kernel's time);
 12. the ``Trainer`` on config A as shipped (autotuned steps per dispatch,
    the device epoch pipeline, three mid-epoch checkpoints an epoch): two
    epochs and ``validate``, each with its seconds and examples/s, B1,
@@ -152,7 +156,10 @@ Phases (each asserts; any failure exits non-zero and prints no result):
    step against one dense rowwise-Adagrad step from the same state with
    the same negatives, dropout 0 and ``embedding_weight_decay`` 0 (each
    leaf's change within ``BIG_STEP_TOL``, rows no id touches equal bit for
-   bit); two runs of 16 sparse steps from one state end in equal bits;
+   bit); the sparse combine through B2's grouped entry (one launch, no
+   second sort) equal bit for bit to its former B2 call over each
+   occurrence's segment, on the step's user and item ids and a skewed
+   draw; two runs of 16 sparse steps from one state end in equal bits;
    the loss falls over 30 dispatches of 8 steps, each step launching B1,
    B2 (seven times: the five small tables and the two combines), B3, B4f
    and B4b; host ms a step (median of five windows), device ms, its top
@@ -223,6 +230,13 @@ Phases (each asserts; any failure exits non-zero and prints no result):
 
     python3 chip_smoke.py --tools-only  # the kernels, then phase 22
 
+    python3 chip_smoke.py --scatter-only  # the kernels, then B2 alone
+
+(B2's cases against the plain version, its times at the step's seven
+launches; with ``--scatter-ab DIR`` instead, then those times with the
+package of the tree unpacked at DIR and with this one, in turns: DIR,
+this, this, DIR, each a process of its own, every result equal in all.)
+
     python3 chip_smoke.py --gather-only  # the kernels, then B7 alone
 
 (B7's ptxas registers and spills, its cases against the plain version,
@@ -277,12 +291,11 @@ CUDA_CORE_MS = {("topk_scores_streaming", 64, 4_000_000, "float32"): 2.470,
           ("topk_scores_streaming", 1, 4_000_000, "float32"): 0.730,
           ("topk_scores_streaming", 1024, 1_000_000, "bfloat16"): 9.451,
           ("topk_scores_pallas", 64, 4_000_000, "float32"): 9.002}
-# B6 (__dp4a on the CUDA cores), B2 (f32 atomics), B3, B9, B4f and B4b before
-# their redesigns: (CUDA-event ms, profiler device ms), NVIDIA H100 80GB
-# HBM3, 700 W; printed beside this run's
+# B6 (__dp4a on the CUDA cores), B3, B9, B4f and B4b before their
+# redesigns: (CUDA-event ms, profiler device ms), NVIDIA H100 80GB HBM3,
+# 700 W; printed beside this run's
 EARLIER_MS = {("topk_scores_streaming_int8", 64): (2.365, 1.820),
               ("topk_scores_streaming_int8", 1): (0.778, 0.553),
-              ("onehot_scatter_add", "item"): (0.0671, 0.0163),
               # B3 with a warp an example and 4-byte accesses
               ("fused_lookup_sum", "step"): (0.0337, 0.00314),
               # B9 on the CUDA cores (f32 FMAs)
@@ -414,13 +427,14 @@ def device_profile(fn, iters, top=6, width=60):
                              a.count / iters] for a in host}}
 
 
-def device_split(fn, iters=20, tries=3):
+def device_split(fn, iters=20, tries=3, top=6):
     """(device ms per call, {device op: ms per call}) of ``fn`` from the
-    profiler (kernels and memsets, without the host's launch gaps), or
-    (None, None) where not measured.  A short window's trace sometimes
-    comes back without its device records, so it is taken again."""
+    profiler (kernels and memsets, without the host's launch gaps; the
+    ``top`` ops with the most time), or (None, None) where not measured.
+    A short window's trace sometimes comes back without its device
+    records, so it is taken again."""
     for _ in range(tries):
-        prof = device_profile(fn, iters)
+        prof = device_profile(fn, iters, top=top)
         if prof is not None:
             return prof["device_ms_per_call"], prof["kernels_ms_per_call"]
     return None, None
@@ -953,8 +967,12 @@ def _scatter_cases(torch, scatter, gen, dev):
     """B2 in every mode and gradient dtype at the step's shapes (user and
     item tables, the vocabulary-level department and category tables, the
     temporal tables) and at edge shapes (no ids, every id out of range,
-    one id 81,920 times, a Zipf skew over the item table): equal bit for
-    bit to the plain version run on the CPU, and to a second call."""
+    one id 81,920 times, a Zipf skew over the item table), and in every
+    mode at its routes' edges (``ROW_LIMIT`` rows and one more, n not a
+    multiple of the chunk, int64 ids, runs of hundreds at D 200, the
+    small tables' limits and one position past them): equal
+    bit for bit to the plain version run on the CPU, and to a second
+    call; the pre-grouped entry on ``torch.sort``'s grouping likewise."""
     def zipf(shape, rows):
         u = torch.rand(shape, generator=gen, device=dev)
         return (u.pow(-1.0 / 0.3) - 1.0).clamp(max=rows + 1).to(torch.int32)
@@ -974,10 +992,33 @@ def _scatter_cases(torch, scatter, gen, dev):
               (3706, torch.full((16384, 5), 1234, dtype=torch.int32,
                                 device=dev), 128),
               (3706, zipf((16384, 5), 3706), 128)]
+    # the routes' edges, in one grads dtype: the row count at the counting
+    # route's limit and one above (torch.sort), n not a multiple of the
+    # chunk, int64 ids past 2^31, runs of hundreds at D 200, the small
+    # tables' route at its limits and one position past them
+    lim = scatter.ROW_LIMIT
+    wide = torch.randint(-2, 6042, (16384,), generator=gen, device=dev)
+    wide[::7] += 2 ** 32
+    edges = [(lim, torch.randint(-2, lim + 2, (16384, 5), generator=gen,
+                                 device=dev, dtype=torch.int32), 128),
+             (lim + 1, torch.randint(-2, lim + 3, (16384, 5), generator=gen,
+                                     device=dev, dtype=torch.int32), 128),
+             (24, torch.randint(-1, 25, (3 * scatter.CHUNK + 77,),
+                                generator=gen, device=dev), 32),
+             (6040, wide, 128),
+             (150, torch.randint(0, 150, (60000,), generator=gen,
+                                 device=dev, dtype=torch.int32), 200),
+             (scatter.SMALL_ROWS, torch.randint(
+                 -1, scatter.SMALL_ROWS + 1, (scatter.SMALL_N,),
+                 generator=gen, device=dev, dtype=torch.int32), 128),
+             (7, torch.randint(0, 7, (scatter.SMALL_N + 1,), generator=gen,
+                               device=dev, dtype=torch.int32), 32)]
     n = 0
-    for rows, ids, d in cases:
+    for k, (rows, ids, d) in enumerate(cases + edges):
         g32 = torch.randn(tuple(ids.shape) + (d,), generator=gen, device=dev)
-        for dtype in (torch.bfloat16, torch.float32):
+        dtypes = ((torch.bfloat16, torch.float32) if k < len(cases) else
+                  (torch.bfloat16,) if d == 128 else (torch.float32,))
+        for dtype in dtypes:
             g = g32.to(dtype)
             for mode in scatter.MODES:
                 got = scatter.onehot_scatter_add(ids, g, rows, mode=mode)
@@ -991,6 +1032,20 @@ def _scatter_cases(torch, scatter, gen, dev):
                 check(torch.equal(got.cpu(), want),
                       f"{what}: kernel != plain version on the CPU")
                 n += 1
+    # the sparse combine's entry: torch.sort's grouping of ids with
+    # duplicates and one run of 300
+    for rows, nn in ((16384, 16384), (81920, 81920), (100, 4096)):
+        ids = torch.randint(0, max(rows // 4, 1), (nn,), generator=gen,
+                            device=dev)
+        ids[:300] = 7
+        g = torch.randn((nn, 64), generator=gen, device=dev)
+        keys, order = torch.sort(ids, stable=True)
+        got = scatter.scatter_add_grouped(order, keys, g, rows, mode="f32")
+        want = scatter.scatter_add_ref(ids.cpu(), g.cpu(), rows, "f32")
+        torch.cuda.synchronize()
+        check(torch.equal(got.cpu(), want), f"B2 grouped rows={rows} "
+              f"n={nn}: kernel != plain version on the CPU")
+        n += 1
     return n
 
 
@@ -2199,13 +2254,197 @@ def _deterministic_library(torch, det_lib, call):
     return out
 
 
+# the kernels that add B2's runs (this tree's, and an earlier tree's
+# long-run kernel, for a comparison with it); every other device op of a
+# call groups, but where the small tables' kernel ran, which groups and
+# adds in one kernel
+B2_ADDS = ("scatter_rows_kernel", "long_runs_kernel")
+B2_ONE_KERNEL = "scatter_small_kernel"
+
+
+def _scatter_step_cases(torch, batch, negs, cfg, consts):
+    """B2's launches in a config A step (``fast``: bf16 rounding where the
+    reference runs its kernel, split for the temporal tables): (table, ids,
+    rows, D, grads dtype, mode) for the user, item, department, category,
+    hour, weekday and month tables."""
+    from ncf_tpu_torch.ops import embedding
+
+    dev = torch.device("cuda")
+    pos = torch.as_tensor(batch["item_ids"], device=dev)
+    items = torch.cat([pos[:, None], torch.as_tensor(negs, device=dev)], 1)
+    m = cfg.model
+    out = []
+    for what, ids, nrows, d, dtype in (
+            ("user", batch["user_ids"], m.num_users, 128, torch.bfloat16),
+            ("item", items, m.num_items, 128, torch.bfloat16),
+            ("dept", consts[1], m.num_departments, 64, torch.float32),
+            ("cat", consts[2], m.num_categories, 64, torch.float32),
+            ("hour", batch["hour"], 24, 32, torch.float32),
+            ("day", batch["day"], 7, 32, torch.float32),
+            ("month", batch["month"], 12, 32, torch.float32)):
+        ids = torch.as_tensor(ids, device=dev)
+        mode = (embedding.backward_mode(nrows, d, ids.numel())
+                if what not in ("hour", "day", "month") else "split")
+        out.append((what, ids, nrows, d, dtype, mode))
+    return out
+
+
+def _time_scatter(torch, cases, seed=5):
+    """B2 at each case of ``_scatter_step_cases``: CUDA events over 50
+    calls, profiler device time, the device time of the grouping (every
+    op of the call but the adds), each device op's ms, the host's enqueue
+    µs a call, the library calls for the same function (``index_add_``,
+    unordered; ``index_put_(accumulate=True)`` under deterministic mode),
+    the plain version, the bound, and a hash of the result.  The grouping's
+    time is None where the small tables' kernel groups and adds in one."""
+    import hashlib
+
+    from ncf_tpu_torch.ops import scatter
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    f32 = PEAK_FLOP_S["float32"]
+    rows = []
+    for what, ids, nrows, d, dtype, mode in cases:
+        g = torch.randn(tuple(ids.shape) + (d,), generator=gen,
+                        device=dev).to(dtype)
+        flat_ids, flat_g = scatter._flat(ids, g)
+        rounded = scatter.round_mode(flat_g, mode)
+        lids = flat_ids.long()
+        n = ids.numel()
+        nbytes = (n * ids.element_size() + g.numel() * g.element_size()
+                  + nrows * d * 4)
+        bound, by = _bound(nbytes, n * d * {"f32": 1, "bf16": 2,
+                                            "split": 5}[mode], f32)
+        call = functools.partial(scatter.onehot_scatter_add, ids, g, nrows,
+                                 mode=mode)
+
+        def lib(nrows=nrows, d=d, lids=lids, rounded=rounded):
+            return torch.zeros((nrows, d), device=dev).index_add_(
+                0, lids, rounded)
+
+        def det_lib(nrows=nrows, d=d, lids=lids, rounded=rounded):
+            # the library's deterministic route for the same function: a
+            # sort, then each row's values added in a fixed order
+            return torch.zeros((nrows, d), device=dev).index_put_(
+                (lids,), rounded, accumulate=True)
+
+        det = _deterministic_library(torch, det_lib, call)
+        ms, ops = device_split(call, top=16)
+        one = ops is None or any(B2_ONE_KERNEL in k for k in ops)
+        adds = (None if one else
+                sum(v for k, v in ops.items() if any(a in k for a in B2_ADDS)))
+        out = call().cpu().numpy()
+        rows.append({"kernel": "onehot_scatter_add", "shape": what,
+                     "mode": mode, "ids": list(ids.shape),
+                     "ids_dtype": str(ids.dtype)[6:], "rows": nrows,
+                     "ms": cuda_ms(call, 50), "device_ms": ms,
+                     "device_ops": ops,
+                     "group_device_ms": None if one else ms - adds,
+                     "host_us": enqueue_us(call),
+                     "library_device_ms": device_split(lib)[0], **det,
+                     "plain_ms": cuda_ms(lambda: scatter.scatter_add_ref(
+                         ids, g, nrows, mode), 3, warmup=1),
+                     "library_ms": cuda_ms(lib, 50),
+                     "bound_ms": bound, "bound_by": by,
+                     "sha256": hashlib.sha256(out.tobytes()).hexdigest()})
+    return rows
+
+
+def _check_no_sort(rows):
+    """B2 groups by itself up to ``ROW_LIMIT`` rows: no sort kernel among
+    the device ops of such a launch (the profiler's names)."""
+    from ncf_tpu_torch.ops import scatter
+
+    for r in rows:
+        if r["kernel"] != "onehot_scatter_add" or r["rows"] > scatter.ROW_LIMIT:
+            continue
+        ops = r["device_ops"]
+        check(ops is not None, f"B2 {r['shape']}: no device ops measured")
+        sorts = [k for k in ops if "sort" in k.lower() or "radix" in k.lower()]
+        check(not sorts, f"B2 {r['shape']}: a sort on its route: {sorts}")
+
+
+def _scatter_step_inputs(torch):
+    """``_scatter_step_cases`` on config A's first batch with seeded
+    stratified negatives, under ``set_scatter_impl("fast")``."""
+    from ncf_tpu_torch.data import sample_negatives_stratified
+    from ncf_tpu_torch.ops import embedding
+
+    embedding.set_scatter_impl("fast")
+    cfg, it, consts, _, _ = _training_setup(torch)
+    batch = next(iter(it.epoch(1)))
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    negs = sample_negatives_stratified(
+        gen, torch.as_tensor(batch["item_ids"], device="cuda"),
+        cfg.model.num_items, cfg.model.negative_samples, cdf=consts[0])
+    return _scatter_step_cases(torch, batch, negs, cfg, consts)
+
+
+def _log_scatter_rows(rows, tag):
+    for r in rows:
+        log(f"{tag}: B2 {r['shape']} {r['ids']} {r['ids_dtype']} into "
+            f"{r['rows']} rows ({r['mode']}): events {r['ms']!r} ms, device "
+            f"{r['device_ms']!r} ms, grouping {r['group_device_ms']!r} ms, "
+            f"host {r['host_us']!r} us a call; index_add_ device "
+            f"{r['library_device_ms']!r} ms; bound {r['bound_ms']!r} ms; "
+            f"ops {json.dumps(r['device_ops'])}")
+
+
+def _scatter_time_main(argv):
+    """``--scatter-time ROOT``: B2's seven step launches timed with the
+    package of the tree at ROOT (this one, or an earlier one unpacked
+    beside it), on one JSON line."""
+    import torch
+
+    root = os.path.abspath(argv[argv.index("--scatter-time") + 1])
+    sys.path.insert(0, root)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from ncf_tpu_torch.ops import _kernels
+
+    check(os.path.abspath(_kernels.__file__).startswith(root + os.sep),
+          f"scatter-time: imported {_kernels.__file__}, not {root}'s")
+    secs = _kernels.build_all(["scatter_add", "tree_sampler"])
+    rows = _time_scatter(torch, _scatter_step_inputs(torch))
+    print("scatter_time_json: " + json.dumps(
+        {"root": root, "build_s": secs, "rows": rows}), flush=True)
+    return 0
+
+
+def phase_scatter_ab(torch, parent):
+    """B2 with an earlier tree's package (``parent``) and this tree's, in
+    turns (parent, this, this, parent), each run a process of its own on
+    the same seeded step inputs: every launch's result equal in all four
+    runs; the rows of each."""
+    runs = []
+    for root in (parent, ROOT, ROOT, parent):
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                            "--scatter-time", root], capture_output=True,
+                           text=True, timeout=900, cwd=ROOT)
+        check(r.returncode == 0, f"scatter-time {root}: exit "
+              f"{r.returncode}\n{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
+        line = [x for x in r.stdout.splitlines()
+                if x.startswith("scatter_time_json: ")][-1]
+        runs.append(json.loads(line.split(": ", 1)[1]))
+        log(f"scatter_ab: {root} in {time.perf_counter() - t0:.1f} s")
+        _log_scatter_rows(runs[-1]["rows"],
+                          "parent" if root == parent else "change")
+    for k, row in enumerate(runs[0]["rows"]):
+        hashes = {run["rows"][k]["sha256"] for run in runs}
+        check(len(hashes) == 1, f"scatter_ab: B2 {row['shape']} differs "
+              f"between the trees or runs")
+    log(f"scatter_ab: every launch equal bit for bit in the {len(runs)} runs")
+    log("scatter_ab_json: " + json.dumps(runs))
+
+
 def _time_training_kernels(torch, batch, negs, params, cfg, consts):
     """Each training kernel at the step's shapes: kernel, plain version,
     library call and bound.  Returns rows keyed by kernel and shape."""
     import torch.nn.functional as F
 
     from ncf_tpu_torch.models.temporal import sinusoidal_table
-    from ncf_tpu_torch.ops import embedding, sampler, scatter, temporal_sum
+    from ncf_tpu_torch.ops import sampler, temporal_sum
     from ncf_tpu_torch.data.sampler import stratified_uniforms
 
     dev = torch.device("cuda")
@@ -2250,59 +2489,8 @@ def _time_training_kernels(torch, batch, negs, params, cfg, consts):
                      "library_ms": cuda_ms(lib, 50),
                      "bound_ms": bound, "bound_by": by, **floor})
 
-    # B2 at each of the step's seven launches (``fast``: bf16 rounding
-    # where the reference runs its kernel, split for the temporal tables),
-    # with the device time of its sort (``scatter._runs``) on its own
-    users = torch.as_tensor(batch["user_ids"], device=dev)
-    items = torch.cat([pos[:, None], torch.as_tensor(negs, device=dev)], 1)
-    dept = torch.as_tensor(consts[1], device=dev)
-    cat = torch.as_tensor(consts[2], device=dev)
-    hour = torch.as_tensor(batch["hour"], device=dev)
-    cases = [("user", users, cfg.model.num_users, 128, torch.bfloat16),
-             ("item", items, I, 128, torch.bfloat16),
-             ("dept", dept, cfg.model.num_departments, 64, torch.float32),
-             ("cat", cat, cfg.model.num_categories, 64, torch.float32),
-             ("hour", hour, 24, 32, torch.float32),
-             ("day", torch.as_tensor(batch["day"], device=dev), 7, 32,
-              torch.float32)]
-    for what, ids, nrows, d, dtype in cases:
-        g = torch.randn(tuple(ids.shape) + (d,), generator=gen,
-                        device=dev).to(dtype)
-        mode = (embedding.backward_mode(nrows, d, ids.numel())
-                if what not in ("hour", "day") else "split")
-        flat_ids, flat_g = scatter._flat(ids, g)
-        rounded = scatter.round_mode(flat_g, mode)
-        lids = flat_ids.long()
-        n = ids.numel()
-        nbytes = n * 4 + g.numel() * g.element_size() + nrows * d * 4
-        bound, by = _bound(nbytes, n * d * {"f32": 1, "bf16": 2,
-                                            "split": 5}[mode], f32)
-        call = functools.partial(scatter.onehot_scatter_add, ids, g, nrows,
-                                 mode=mode)
-
-        def lib(nrows=nrows, d=d, lids=lids, rounded=rounded):
-            return torch.zeros((nrows, d), device=dev).index_add_(
-                0, lids, rounded)
-
-        def det_lib(nrows=nrows, d=d, lids=lids, rounded=rounded):
-            # the library's deterministic route for the same function: a
-            # sort, then each row's values added in a fixed order
-            return torch.zeros((nrows, d), device=dev).index_put_(
-                (lids,), rounded, accumulate=True)
-
-        runs = functools.partial(scatter._runs, ids)
-        det = _deterministic_library(torch, det_lib, call)
-        rows.append({"kernel": "onehot_scatter_add", "shape": what,
-                     "mode": mode, "ids": list(ids.shape),
-                     "ms": cuda_ms(call, 50), **_device_fields(call, lib),
-                     **det,
-                     "sort_device_ms": device_split(runs)[0],
-                     "atomic_ms": EARLIER_MS.get(("onehot_scatter_add",
-                                                  what)),
-                     "plain_ms": cuda_ms(lambda: scatter.scatter_add_ref(
-                         ids, g, nrows, mode), 3, warmup=1),
-                     "library_ms": cuda_ms(lib, 50),
-                     "bound_ms": bound, "bound_by": by})
+    rows += _time_scatter(torch, _scatter_step_cases(torch, batch, negs,
+                                                     cfg, consts))
 
     tables = [params["temporal"][k].detach() for k in ("hour", "day",
                                                        "month")]
@@ -2503,6 +2691,7 @@ def phase_training_timing(torch):
         main_gen, torch.as_tensor(b["item_ids"], device="cuda"),
         cfg.model.num_items, cfg.model.negative_samples, cdf=consts[0])
     rows = _time_training_kernels(torch, b, negs, main_params, cfg, consts)
+    _check_no_sort(rows)
     rows += _time_tower(torch)
     for r in rows:
         log(f"timing: {r['kernel']} [{r['shape']}] kernel {r['ms']!r} ms "
@@ -2511,14 +2700,15 @@ def phase_training_timing(torch):
             f"{r.get('library_device_ms')!r} ms), off path "
             f"{r.get('off_path_ms')!r} ms, bound {r['bound_ms']!r} ms "
             f"({r['bound_by']})" + (
-                f"; sort {r['sort_device_ms']!r} ms of device time, "
-                f"atomic version {r['atomic_ms']!r} ms; deterministic "
+                f"; grouping {r['group_device_ms']!r} ms of device time, "
+                f"host {r['host_us']!r} us a call, ops "
+                f"{json.dumps(r['device_ops'])}; deterministic "
                 f"library call (index_put_ accumulate) "
                 f"{r['det_library_ms']!r} ms (device "
                 f"{r['det_library_device_ms']!r} ms, repeats "
                 f"{r['det_library_repeats']}, equals the kernel "
                 f"{r['det_library_equals_kernel']})"
-                if "sort_device_ms" in r else "") + (
+                if "group_device_ms" in r else "") + (
                 f"; before the redesign {r['earlier_ms']!r} ms (events, "
                 f"device)" if "earlier_ms" in r else "") + (
                 f"; CUDA-core version (PR 7) {r['pr7_ms']!r} ms (device "
@@ -4600,6 +4790,48 @@ def _b1_iid_at(torch, cdf, pos, NEG, ml1m_row):
     return row
 
 
+def _big_combine(torch, batch, cfg):
+    """``combine_duplicate_rows`` (one B2 launch, through its grouped
+    entry: the combine sorts once) against its former B2 call over each
+    occurrence's segment, on the step's user and item ids and a skewed
+    draw over the items: ``rep_ids`` and totals equal bit for bit."""
+    from ncf_tpu_torch.ops import scatter
+    from ncf_tpu_torch.train.sparse import combine_duplicate_rows
+
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    u = torch.rand(65536, generator=gen, device="cuda")
+    m = cfg.model
+    cases = {"user": (batch["user_ids"], m.num_users),
+             "item": (batch["item_ids"], m.num_items),
+             "skewed": ((u.pow(-1.0 / 0.4) - 1.0).clamp(
+                 max=m.num_items - 1).long(), m.num_items)}
+    out = {}
+    for what, (ids, V) in cases.items():
+        ids = torch.as_tensor(ids, device="cuda").reshape(-1)
+        n = ids.numel()
+        g = torch.randn((n, 64), generator=gen, device="cuda")
+        n0 = scatter.onehot_scatter_add.launches.value
+        rep, totals = combine_duplicate_rows(ids, g, V)
+        launches = scatter.onehot_scatter_add.launches.value - n0
+        ids_s, order = torch.sort(ids.long(), stable=True)
+        boundary = torch.ones_like(ids_s)
+        boundary[1:] = ids_s[1:] != ids_s[:-1]
+        seg_idx = torch.cumsum(boundary, 0) - 1
+        seg_of = torch.empty_like(seg_idx)
+        seg_of[order] = seg_idx
+        want = scatter.onehot_scatter_add(seg_of, g, n, mode="f32")
+        want_rep = torch.arange(n, device="cuda") + V
+        want_rep.scatter_(0, seg_idx, ids_s)
+        torch.cuda.synchronize()
+        check(launches == 1, f"bigvocab: the combine of {what} ids launched "
+              f"B2 {launches} times")
+        check(torch.equal(rep, want_rep) and torch.equal(totals, want),
+              f"bigvocab: the combine of {what} ids differs from its "
+              "former B2 call")
+        out[what] = {"ids": n, "segments": int(seg_idx[-1]) + 1}
+    return out
+
+
 def phase_bigvocab_step(torch, card, ml1m_iid_row=None):
     """Phase 16: the sparse table update at the shipped bigvocab config's
     full width on seeded batches.  Returns (launches of the training
@@ -4624,11 +4856,14 @@ def phase_bigvocab_step(torch, card, ml1m_iid_row=None):
     log(f"bigvocab: {m.num_users}x{m.num_items} params, batch {B}, K {K}, "
         f"{m.compute_dtype}, set up in {time.perf_counter() - t0:.1f} s")
     batches = draw(BIG_LOSS_DISPATCHES, 1)
+    step0 = {k: v[0] for k, v in batches[0].items()}
     summary = {"step_vs_dense": _big_sparse_vs_dense(
-        torch, cfg, params, consts, {k: v[0] for k, v in
-                                     batches[0].items()})}
+        torch, cfg, params, consts, step0)}
     log(f"bigvocab: one sparse step against one dense rowwise step: "
         f"{json.dumps(summary['step_vs_dense'])}")
+    summary["combine"] = _big_combine(torch, step0, cfg)
+    log(f"bigvocab: the sparse combine through B2's grouped entry equals "
+        f"its former B2 call bit for bit: {json.dumps(summary['combine'])}")
 
     model = get_model("advanced_ncf")
     dense_opt = make_optimizer(dataclasses.replace(
@@ -6242,6 +6477,30 @@ def main() -> int:
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}), flush=True)
         return 0
+    if "--scatter-only" in sys.argv[1:] or "--scatter-ab" in sys.argv[1:]:
+        # B2 alone: its cases against the plain version and its times at
+        # the step's seven launches; with --scatter-ab PARENT, beside the
+        # tree unpacked at PARENT, in turns
+        from ncf_tpu_torch.ops import scatter
+
+        log("build: scatter_add " + _ptxas_report(_kernels, "scatter_add"))
+        dev = torch.device("cuda")
+        t0 = time.perf_counter()
+        n2 = _scatter_cases(torch, scatter,
+                            torch.Generator(device=dev).manual_seed(99), dev)
+        log(f"kernel_vs_plain: onehot_scatter_add {n2} cases equal bit for "
+            f"bit ({time.perf_counter() - t0:.1f} s)")
+        rows = _time_scatter(torch, _scatter_step_inputs(torch))
+        _check_no_sort(rows)
+        _log_scatter_rows(rows, "timing")
+        log("scatter_timing_json: " + json.dumps(rows))
+        if "--scatter-ab" in sys.argv[1:]:
+            phase_scatter_ab(torch, os.path.abspath(
+                sys.argv[sys.argv.index("--scatter-ab") + 1]))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
     if "--tools-only" in sys.argv[1:]:
         # phase 22 alone, with its contract lines
         tools_launches, tools_summary = phase_tools(torch, card)
@@ -6441,6 +6700,8 @@ if __name__ == "__main__":
         if "--rank" in sys.argv[1:]:            # a rank of a mesh phase
             sys.path.insert(0, ROOT)
             sys.exit(_rank_main(sys.argv[1:]))
+        if "--scatter-time" in sys.argv[1:]:    # a run of --scatter-ab
+            sys.exit(_scatter_time_main(sys.argv[1:]))
         sys.exit(main())
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)

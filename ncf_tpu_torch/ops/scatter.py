@@ -18,10 +18,15 @@ values, starting from 0.0 (what a sequential ``np.add.at`` in f32
 computes).  So a result does not depend on the run or the device: the
 kernel equals the plain version bit for bit.
 
-CUDA tensors sort the flattened ids stably (``torch.sort``, bookkeeping:
-no gradient value is added there) and launch ``csrc/scatter_add.cu``,
-which adds each row's run in order and writes each row once, or raise;
-CPU tensors take ``scatter_add_ref``, the plain version.
+CUDA tensors launch ``csrc/scatter_add.cu`` with one C call, or raise.
+The kernel groups the flattened positions by id itself for tables of up
+to ``ROW_LIMIT`` rows: up to ``SMALL_ROWS`` rows (and ``SMALL_N``
+positions) in one kernel, a block a row, else by a stable counting sort.
+Larger tables are grouped by ``torch.sort`` (bookkeeping: no gradient
+value is added there).  Then each row's run is added in order and each
+row written once.  CPU tensors take ``scatter_add_ref``, the plain
+version.  ``scatter_add_grouped`` takes a grouping its caller already
+made (the sparse combine's sort).
 
 ``scatter_fits`` and ``scatter_preferred`` are copies of the reference's
 routing rules, with its TPU cost model: the port uses them only to choose
@@ -31,13 +36,14 @@ the same rounding mode as the JAX package for each table (see
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from ncf_tpu_torch.ops import _kernels
 
 MODES = ("split", "bf16", "f32")
 _MODE_CODE = {"split": 0, "bf16": 1, "f32": 2}
-_LONG_RUN = 128      # the kernel's kLongRun: longer runs get a block each
 
 
 def _round_up(x: int, m: int) -> int:
@@ -102,42 +108,162 @@ def scatter_add_ref(ids: torch.Tensor, grads: torch.Tensor, num_rows: int,
     return out
 
 
-def _runs(ids: torch.Tensor):
-    """The kernel's bookkeeping: the flattened ids as int32 sorted stably
-    (equal ids keep their flattened order) with their flattened positions
-    (int64), and the ``(rows, slots)`` that map a flattened position ``f``
-    to its row of grads: ``f`` itself when ``slots == 1``, else ``(f %
-    rows) * slots + f // rows`` (2-D ids, flattened slot-major)."""
-    flat = _flat_ids(ids).to(torch.int32)
-    sorted_ids, perm = torch.sort(flat, stable=True)
-    rows, slots = tuple(ids.shape) if ids.dim() == 2 else (flat.numel(), 1)
-    return sorted_ids, perm, rows, slots
+# csrc/scatter_add.cu's constants: the largest table the kernel groups by
+# itself (its shared memory), the small tables' route (rows, positions),
+# its grouping blocks' positions (at least, at most, and the blocks before
+# chunks grow), warps a block, and the runs longer than which a row takes
+# the long path
+ROW_LIMIT = 11264
+SMALL_ROWS, SMALL_N = 64, 32768
+CHUNK, MAX_CHUNK, MAX_CHUNKS = 2048, 65280, 256
+WARPS = 8
+LONG_RUN = 128
+_THREADS = 32 * WARPS
+_IDS = (torch.int32, torch.int64)
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def _scatter_cuda(ids, grads, num_rows, mode):
-    if grads.dtype not in (torch.float32, torch.bfloat16):
+def counting_route(num_rows: int, n: int) -> bool:
+    """Whether the kernel groups ``n`` positions into ``num_rows`` rows by
+    its own counting sort (else the wrapper sorts)."""
+    return num_rows <= ROW_LIMIT and n <= MAX_CHUNKS * MAX_CHUNK
+
+
+def small_route(num_rows: int, n: int) -> bool:
+    """Whether the counting route takes its small tables' kernel: a block
+    a (row, 32 columns) lists its row's positions in order itself, so no
+    grouping kernel runs and no scratch is needed."""
+    return num_rows <= SMALL_ROWS and n <= SMALL_N
+
+
+def chunk_size(n: int) -> int:
+    """Flattened positions a grouping block takes: ``CHUNK``, or more
+    (a multiple of the block's threads) so that there are at most
+    ``MAX_CHUNKS`` blocks."""
+    if n <= CHUNK * MAX_CHUNKS:
+        return CHUNK
+    return _round_up(-(-n // MAX_CHUNKS), _THREADS)
+
+
+def num_chunks(n: int) -> int:
+    return max(1, -(-n // chunk_size(n)))
+
+
+@functools.lru_cache(maxsize=256)
+def scratch_ints(n: int, num_rows: int, counting: bool) -> int:
+    """int32 entries of the kernel's scratch: none for the small tables'
+    route; else the list of long runs and each sorted position's row of
+    grads, and for the counting route the chunk counts, the CSR of runs
+    and the flags and counter of its scan, else each row's start and end
+    and each sorted position's row."""
+    if counting and small_route(num_rows, n):
+        return 0
+    lists = 1 + min(num_rows, n // (LONG_RUN + 1)) + n
+    if counting:
+        return (num_chunks(n) * num_rows + num_rows + 1
+                + num_rows // _THREADS + 2 + lists)
+    return 2 * num_rows + lists + n
+
+
+def _launch(ids, id_bytes, rows, slots, keys, perm, grads, num_rows, mode,
+            counting):
+    """One C call: every phase on the current stream, one scratch."""
+    code = _DTYPE_CODE.get(grads.dtype)
+    if code is None:
         raise TypeError(f"the scatter kernel takes f32/bf16 grads, got "
                         f"{grads.dtype}")
-    if ids.device != grads.device:
-        raise ValueError("ids and grads must share one device")
-    if grads.dim() < 1 or grads.shape[:-1] != ids.shape:
-        raise ValueError(f"ids {tuple(ids.shape)} do not index grads "
-                         f"{tuple(grads.shape)}")
+    if num_rows <= 0:
+        raise ValueError(f"num_rows must be positive, got {num_rows}")
+    if not grads.is_contiguous():
+        grads = grads.contiguous()
     D = grads.shape[-1]
-    sorted_ids, perm, rows, slots = _runs(ids)
-    grads = grads.contiguous()
-    out = torch.empty((num_rows, D), dtype=torch.float32, device=grads.device)
-    n = sorted_ids.numel()
-    longs = torch.empty(1 + n // (_LONG_RUN + 1), dtype=torch.int32,
-                        device=grads.device)
-    with _kernels.on_device(grads.device):
+    dev = grads.device
+    out = torch.empty((num_rows, D), dtype=torch.float32, device=dev)
+    need = scratch_ints(rows * slots, num_rows, counting)
+    scratch = (torch.empty(need, dtype=torch.int32, device=dev) if need
+               else None)
+    with _kernels.on_device(dev):
         _kernels.launch(
-            *C_ENTRY, sorted_ids.data_ptr(), perm.data_ptr(),
-            grads.data_ptr(), 0 if grads.dtype == torch.float32 else 1, n,
-            rows, slots, D, num_rows, _MODE_CODE[mode], longs.data_ptr(),
+            *C_ENTRY, 0 if ids is None else ids.data_ptr(), id_bytes, rows,
+            slots, 0 if keys is None else keys.data_ptr(),
+            0 if keys is None else keys.element_size(),
+            0 if perm is None else perm.data_ptr(), grads.data_ptr(), code,
+            D, num_rows, _MODE_CODE[mode],
+            0 if scratch is None else scratch.data_ptr(), need,
             out.data_ptr(), _kernels.stream_of(grads))
     onehot_scatter_add.launches.add()
     return out
+
+
+def _scatter_cuda(ids, grads, num_rows, mode):
+    # the host's work a call: no copy of contiguous int32/int64 ids, the
+    # 2-D ids read slot-major by the kernel, one scratch
+    if ids.device != grads.device:
+        raise ValueError("ids and grads must share one device")
+    if grads.shape[:-1] != ids.shape or grads.dim() < 1:
+        raise ValueError(f"ids {tuple(ids.shape)} do not index grads "
+                         f"{tuple(grads.shape)}")
+    if ids.dtype not in _IDS:
+        ids = ids.to(torch.int32)
+    if ids.dim() == 2:
+        rows, slots = ids.shape
+    else:
+        rows, slots = ids.numel(), 1
+    if counting_route(num_rows, rows * slots):
+        if not ids.is_contiguous():
+            ids = ids.contiguous()
+        return _launch(ids, ids.element_size(), rows, slots, None, None,
+                       grads, num_rows, mode, True)
+    keys, perm = torch.sort(_flat_ids(ids), stable=True)
+    return _launch(None, 0, rows, slots, keys, perm, grads, num_rows, mode,
+                   False)
+
+
+def _grouped_cuda(order, sorted_rows, grads, num_rows, mode):
+    if order.device != grads.device:
+        raise ValueError("order and grads must share one device")
+    if sorted_rows.dtype not in _IDS:
+        sorted_rows = sorted_rows.to(torch.int32)
+    if not sorted_rows.is_contiguous():
+        sorted_rows = sorted_rows.contiguous()
+    if order.dtype != torch.int64 or not order.is_contiguous():
+        order = order.to(torch.int64).contiguous()
+    return _launch(None, 0, order.numel(), 1, sorted_rows, order, grads,
+                   num_rows, mode, False)
+
+
+def scatter_add_grouped_ref(order: torch.Tensor, sorted_rows: torch.Tensor,
+                            grads: torch.Tensor, num_rows: int,
+                            mode: str = "split") -> torch.Tensor:
+    """Plain version of ``scatter_add_grouped``: B2 over the ids the
+    grouping stands for (``ids[order[k]] = sorted_rows[k]``)."""
+    ids = torch.empty_like(sorted_rows)
+    ids[order] = sorted_rows
+    return scatter_add_ref(ids, grads, num_rows, mode)
+
+
+def scatter_add_grouped(order: torch.Tensor, sorted_rows: torch.Tensor,
+                        grads: torch.Tensor, num_rows: int, *,
+                        mode: str = "split") -> torch.Tensor:
+    """B2 given its grouping: ``sorted_rows`` int [N] ascending, ``order``
+    int [N] the position in ``grads`` [N, D] of each, equal rows in
+    increasing positions (what ``torch.sort(ids, stable=True)`` returns).
+    Equal bit for bit to ``onehot_scatter_add(ids, grads, num_rows)`` for
+    those ids, without sorting again; the kernel trusts the grouping.
+    Each kernel launch adds one to ``onehot_scatter_add.launches``."""
+    if mode not in MODES:
+        raise ValueError(f"unknown scatter mode {mode!r}")
+    if (order.dim() != 1 or sorted_rows.shape != order.shape
+            or grads.dim() != 2 or grads.shape[0] != order.numel()):
+        raise ValueError(f"order {tuple(order.shape)}, sorted_rows "
+                         f"{tuple(sorted_rows.shape)} and grads "
+                         f"{tuple(grads.shape)} do not match")
+    if grads.device.type == "cpu":
+        return scatter_add_grouped_ref(order, sorted_rows, grads, num_rows,
+                                       mode)
+    if grads.device.type != "cuda":
+        raise RuntimeError(f"no scatter kernel for {grads.device}")
+    return _grouped_cuda(order, sorted_rows, grads, num_rows, mode)
 
 
 def onehot_scatter_add(ids: torch.Tensor, grads: torch.Tensor,
@@ -156,7 +282,7 @@ def onehot_scatter_add(ids: torch.Tensor, grads: torch.Tensor,
 
 onehot_scatter_add.launches = _kernels.LaunchCounter()
 # (library, C function, argument codes of ``_kernels.bind``)
-C_ENTRY = ("scatter_add", "ncf_scatter_add", "pppiiiiiiippp")
+C_ENTRY = ("scatter_add", "ncf_scatter_add", "piiipippiiiiplpp")
 
 
 # ------------------------------------------- the reference's routing rules

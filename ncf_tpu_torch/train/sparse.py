@@ -11,10 +11,10 @@ What the port does where the reference leans on XLA:
 
 - *Order of the sums.*  ``jax.ops.segment_sum`` adds in a fixed order;
   ``index_add_`` on the card adds with atomics in any order.  The combine
-  sorts the ids stably and adds each segment's rows with the scatter
-  kernel B2 (``ops/scatter.py::onehot_scatter_add``, mode ``f32``), which
-  adds a row's values in flattened order: the totals are the same bits
-  on every run.
+  sorts the ids stably and hands that grouping to the scatter kernel B2
+  (``ops/scatter.py::scatter_add_grouped``, mode ``f32``), which adds
+  each segment's rows in their order without sorting again: the totals
+  are the same bits on every run.
 - *The sink ids.*  The reference drops the unused slots' out-of-range
   ids in its scatter (``mode="drop"``); a boolean mask would give a
   shape known only on the host.  Here a sink ``num_rows + k`` writes to
@@ -30,7 +30,7 @@ from typing import Tuple
 
 import torch
 
-from ncf_tpu_torch.ops.scatter import onehot_scatter_add
+from ncf_tpu_torch.ops.scatter import scatter_add_grouped
 
 
 def combine_duplicate_rows(ids: torch.Tensor, grads: torch.Tensor,
@@ -45,10 +45,9 @@ def combine_duplicate_rows(ids: torch.Tensor, grads: torch.Tensor,
     ids_s, order = torch.sort(ids.to(torch.int64), stable=True)
     boundary = torch.ones_like(ids_s)
     boundary[1:] = ids_s[1:] != ids_s[:-1]
-    seg_idx = torch.cumsum(boundary, 0) - 1
-    seg_of = torch.empty_like(seg_idx)
-    seg_of[order] = seg_idx                 # each occurrence's segment
-    totals = onehot_scatter_add(seg_of, grads.reshape(n, -1), n, mode="f32")
+    seg_idx = torch.cumsum(boundary, 0) - 1   # the segment of each
+    totals = scatter_add_grouped(order, seg_idx, grads.reshape(n, -1), n,
+                                 mode="f32")
     rep_ids = torch.arange(n, dtype=torch.int64, device=ids.device) + num_rows
     # every occurrence of a segment writes the same id
     rep_ids.scatter_(0, seg_idx, ids_s)

@@ -271,6 +271,127 @@ def test_scatter_kernel_matches_plain_version(cuda, mode, shape, rows, d,
     assert torch.equal(got.cpu(), want)             # bit for bit
 
 
+def _sequential_sum(ids, g, rows, mode):
+    """Each row's rounded values summed in flattened order from 0.0 in f32
+    (``np.add.at`` adds in index order), on the CPU: B2's function."""
+    import numpy as np
+
+    from ncf_tpu_torch.ops import scatter
+
+    flat, fg = scatter._flat(ids.cpu().long(), g.cpu())
+    keep = (flat >= 0) & (flat < rows)
+    out = np.zeros((rows, g.shape[-1]), np.float32)
+    np.add.at(out, flat[keep].numpy(),
+              scatter.round_mode(fg[keep], mode).numpy())
+    return torch.from_numpy(out)
+
+
+def _route_edge(name, gen, dev):
+    """(ids, rows, D, grads dtype) of a route edge of B2."""
+    from ncf_tpu_torch.ops import scatter
+
+    def uniform(shape, rows, dtype=torch.int32):
+        return torch.randint(-2, rows + 2, shape, generator=gen, device=dev,
+                             dtype=dtype)
+
+    if name == "at_limit":
+        return uniform((16384, 5), scatter.ROW_LIMIT), scatter.ROW_LIMIT, \
+            128, torch.bfloat16
+    if name == "above_limit":
+        r = scatter.ROW_LIMIT + 1
+        return uniform((16384, 5), r), r, 128, torch.bfloat16
+    if name == "one_id":                       # 81,920 positions, one row
+        return torch.full((16384, 5), 1234, dtype=torch.int32,
+                          device=dev), 3706, 128, torch.bfloat16
+    if name == "out_of_range":
+        ids = torch.randint(3706, 9000, (16384, 5), generator=gen,
+                            device=dev, dtype=torch.int32)
+        ids[:, ::2] *= -1
+        return ids, 3706, 128, torch.float32
+    if name == "ragged":                       # n not a multiple of CHUNK
+        return uniform((3 * scatter.CHUNK + 77,), 24), 24, 32, torch.float32
+    if name == "int64":                        # past 2^31: out of range
+        ids = uniform((16384,), 6040, torch.int64)
+        ids[::7] += 2 ** 32
+        return ids, 6040, 128, torch.bfloat16
+    if name == "small_limit":                  # the small route's edge
+        return uniform((scatter.SMALL_N,), scatter.SMALL_ROWS), \
+            scatter.SMALL_ROWS, 64, torch.bfloat16
+    if name == "small_above":                  # one past it: counting
+        return uniform((scatter.SMALL_N + 1,), 7), 7, 32, torch.float32
+    if name == "long_runs":                    # a few hundred a row, D 200
+        return uniform((60000,), 150), 150, 200, torch.float32
+    # grown chunks: past CHUNK * MAX_CHUNKS positions
+    n = scatter.CHUNK * scatter.MAX_CHUNKS + 4097
+    return uniform((n,), 7), 7, 32, torch.float32
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ("split", "f32"))
+@pytest.mark.parametrize("name", ("at_limit", "above_limit", "one_id",
+                                  "out_of_range", "ragged", "int64",
+                                  "small_limit", "small_above", "long_runs",
+                                  "big_n"))
+def test_scatter_kernel_route_edges(cuda, mode, name):
+    """B2 at its routes' edges (the row count at the counting route's
+    limit and one above, one id 81,920 times, every id out of range, n
+    not a multiple of the chunk, int64 ids, the small tables' route at
+    its row and position limits and one position past them, runs of
+    hundreds at D 200, grown chunks): bit for bit with the sequential f32
+    sum and from call to call."""
+    from ncf_tpu_torch.ops import scatter
+
+    gen = torch.Generator(device=cuda).manual_seed(len(name))
+    ids, rows, d, dtype = _route_edge(name, gen, cuda)
+    g = torch.randn(tuple(ids.shape) + (d,), generator=gen,
+                    device=cuda).to(dtype)
+    n0 = scatter.onehot_scatter_add.launches.value
+    got = scatter.onehot_scatter_add(ids, g, rows, mode=mode)
+    again = scatter.onehot_scatter_add(ids, g, rows, mode=mode)
+    torch.cuda.synchronize()
+    assert scatter.onehot_scatter_add.launches.value == n0 + 2
+    assert torch.equal(got, again)
+    assert torch.equal(got.cpu(), _sequential_sum(ids, g, rows, mode))
+    if name in ("at_limit", "ragged", "one_id"):
+        assert torch.equal(got.cpu(), scatter.scatter_add_ref(
+            ids.cpu(), g.cpu(), rows, mode))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,rows,d", [(16384, 16384, 128), (81920, 81920, 64),
+                                      (4096, 100, 32), (1, 5, 8)])
+def test_scatter_kernel_grouped_entry(cuda, n, rows, d):
+    """The sparse combine's entry: given ``torch.sort``'s grouping of ids
+    with duplicates, equal bit for bit to B2 on the ids and to the
+    combine's former call over each occurrence's segment."""
+    from ncf_tpu_torch.ops import scatter
+    from ncf_tpu_torch.train.sparse import combine_duplicate_rows
+
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    u = torch.rand(n, generator=gen, device=cuda)
+    ids = (u.pow(-1.0 / 0.4) - 1.0).clamp(max=rows - 1).long()   # skewed
+    g = torch.randn((n, d), generator=gen, device=cuda)
+    keys, order = torch.sort(ids, stable=True)
+    n0 = scatter.onehot_scatter_add.launches.value
+    got = scatter.scatter_add_grouped(order, keys, g, rows, mode="f32")
+    assert scatter.onehot_scatter_add.launches.value == n0 + 1
+    want = scatter.onehot_scatter_add(ids, g, rows, mode="f32")
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(got.cpu(), _sequential_sum(ids, g, rows, "f32"))
+    rep, totals = combine_duplicate_rows(ids, g, rows)
+    boundary = torch.ones_like(keys)
+    boundary[1:] = keys[1:] != keys[:-1]
+    seg_idx = torch.cumsum(boundary, 0) - 1
+    seg_of = torch.empty_like(seg_idx)
+    seg_of[order] = seg_idx
+    want_t = scatter.onehot_scatter_add(seg_of, g, n, mode="f32")
+    want_rep = torch.arange(n, device=cuda) + rows
+    want_rep.scatter_(0, seg_idx, keys)
+    torch.cuda.synchronize()
+    assert torch.equal(rep, want_rep) and torch.equal(totals, want_t)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("B", (16384, 4096, 5))
 def test_temporal_sum_kernel_equals_plain_version(cuda, B):

@@ -2,8 +2,11 @@
 backward: the plain version against the sequential ``np.add.at`` in f32
 (bit for bit) and against the JAX Pallas kernel
 (``onehot_scatter_add(..., interpret=True)``) in each rounding mode, the
-kernel's bookkeeping (``scatter._runs``) replayed in NumPy, the backward's
-routing against ``ncf_tpu.ops.embedding``'s decision, and B7's backward.
+kernel's grouping (its counting sort, and the route above ``ROW_LIMIT``)
+replayed in NumPy and held to ``np.argsort(kind="stable")``, the
+pre-grouped entry and the sparse combine through it, which routes sort,
+the backward's routing against ``ncf_tpu.ops.embedding``'s decision, and
+B7's backward.
 
 Tolerances: against ``np.add.at`` in f32 on the rounded values, equal bit
 for bit (the port fixes that order of the adds).  Relative to the
@@ -138,26 +141,381 @@ def test_plain_b2_is_the_sequential_f32_sum(mode, grad_dtype, name):
     assert np.array_equal(got.numpy().view(np.int32), want.view(np.int32))
 
 
-@pytest.mark.parametrize("name", _CASES)
+def _flat_rows(ids):
+    """(flattened ids, each flattened position's row of grads, rows,
+    slots): 2-D ids slot-major, others row-major."""
+    if ids.ndim == 2:
+        rows, slots = ids.shape
+        f = np.arange(ids.size)
+        e = (f % rows) * slots + f // rows if rows else f
+    else:
+        rows, slots = ids.size, 1
+        e = np.arange(ids.size)
+    return ids.reshape(-1)[e], e, rows, slots
+
+
+def _counting_model(ids, R):
+    """``csrc/scatter_add.cu``'s counting route replayed in NumPy, with the
+    wrapper's constants: chunk counts (``group_hist_kernel``), each row's
+    positions before a chunk (``group_colscan_kernel``), then per chunk
+    the rows' starts, a 16-bit count a (warp, row), the prefix over warps,
+    and each position placed after the equal ids of its warp's lower lanes
+    (``group_place_kernel``).  Returns (CSR start [R + 1], each sorted
+    position's row of grads, its row, the rows of long runs)."""
+    keys_f, e_f, rows, slots = _flat_rows(ids)
+    n = keys_f.size
+    chunk, nch = tscatter.chunk_size(n), tscatter.num_chunks(n)
+    per = chunk // tscatter.WARPS
+    assert chunk % tscatter.WARPS == 0 and per % 32 == 0
+
+    def slabs(c, w):
+        lo = c * chunk + w * per
+        hi = min(lo + per, n)
+        for f0 in range(lo, hi, 32):
+            f = np.arange(f0, f0 + 32)
+            ok = f < hi
+            k = np.where(ok, keys_f[np.minimum(f, n - 1)] if n else -1, -1)
+            k = np.where((k >= 0) & (k < R), k, -1)
+            yield k, np.where(ok, e_f[np.minimum(f, n - 1)] if n else 0, 0)
+
+    def groups(k):              # a slab's equal ids: {id: lanes}, in order
+        return {int(v): np.flatnonzero(k == v) for v in np.unique(k[k >= 0])}
+
+    hist = np.zeros((nch, R), np.int64)
+    for c in range(nch):
+        for w in range(tscatter.WARPS):
+            for k, _ in slabs(c, w):
+                for v, lanes in groups(k).items():
+                    hist[c, v] += lanes.size
+    before = np.cumsum(hist, 0) - hist                  # colscan
+    tot = np.concatenate([hist.sum(0), [0]])            # and row R
+    # each block of 256 rows scans its own and adds the sums of the
+    # blocks before it (published, read back)
+    threads = 32 * tscatter.WARPS
+    blocks = np.arange(R + 1) // threads
+    local = np.zeros(R + 1, np.int64)
+    for b in range(blocks[-1] + 1):
+        rows_b = np.flatnonzero(blocks == b)
+        local[rows_b] = np.cumsum(tot[rows_b]) - tot[rows_b]
+    bsum = np.bincount(blocks, weights=tot).astype(np.int64)
+    boff = np.cumsum(bsum) - bsum
+    start = local + boff[blocks]
+    tot = tot[:R]
+    kept = int(start[-1])
+    pos_e = np.full(kept, -1, np.int64)
+    row_of = np.full(kept, -1, np.int64)
+    for c in range(nch):
+        cnt = np.zeros((tscatter.WARPS, R), np.int64)
+        for w in range(tscatter.WARPS):
+            for k, _ in slabs(c, w):
+                for v, lanes in groups(k).items():
+                    cnt[w, v] += lanes.size
+        assert cnt.sum(0).max(initial=0) < 2 ** 16        # 16-bit counts
+        cnt = np.cumsum(cnt, 0) - cnt                     # earlier warps
+        base = start[:R] + before[c]
+        for w in range(tscatter.WARPS):
+            for k, e in slabs(c, w):
+                for v, lanes in groups(k).items():
+                    dest = base[v] + cnt[w, v] + np.arange(lanes.size)
+                    assert (pos_e[dest] == -1).all()
+                    pos_e[dest], row_of[dest] = e[lanes], v
+                    cnt[w, v] += lanes.size
+    longs = set(np.flatnonzero(tot > tscatter.LONG_RUN).tolist())
+    return start, pos_e, row_of, longs
+
+
+def _small_model(ids, R):
+    """The small tables' route (``scatter_small_kernel``): for each row,
+    each warp's contiguous part of the positions, a ballot a slab of 32,
+    the positions whose id is the row listed after the earlier warps' and
+    the lower lanes'.  Returns each row's list of grads rows."""
+    keys_f, e_f, _, _ = _flat_rows(ids)
+    n = keys_f.size
+    threads = 32 * tscatter.WARPS
+    per = -(-n // threads) * 32
+    runs = []
+    for r in range(R):
+        parts = []
+        for w in range(tscatter.WARPS):
+            lo, hi = min(w * per, n), min(w * per + per, n)
+            part = []
+            for f0 in range(lo, hi, 32):
+                f = np.arange(f0, min(f0 + 32, hi))
+                hit = keys_f[f] == r                  # the slab's ballot
+                part.extend(e_f[f[hit]].tolist())     # lower lanes first
+            parts.append(part)
+        runs.append(sum(parts, []))
+    return runs
+
+
+@pytest.mark.parametrize("name", ("hour", "day", "dept", "out_of_range",
+                                  "empty", "small_2d", "repeated"))
+def test_small_grouping_is_a_stable_argsort(name):
+    """The small tables' route (up to ``SMALL_ROWS`` rows): each row's
+    list in the order of ``np.argsort(kind="stable")``."""
+    ids, R = _model_ids(name)
+    assert tscatter.small_route(R, ids.size)
+    runs = _small_model(ids, R)
+    want_e, _, want_start = _stable_order(ids, R)
+    for r in range(R):
+        assert runs[r] == want_e[want_start[r]:want_start[r + 1]].tolist()
+
+
+def _sorted_model(ids, R, seed=0):
+    """The other route: ``torch.sort`` of the flattened ids, then
+    ``group_csr_kernel`` (each row's start and end written where its run
+    begins and ends, over scratch that starts as garbage),
+    ``group_longs_kernel``, and the adds' test of a row's start.  Returns
+    (each row's run as (start, end), each sorted position's row of grads,
+    its row, the rows of long runs)."""
+    keys_f, e_f, rows, slots = _flat_rows(ids)
+    n = keys_f.size
+    sk, perm = torch.sort(torch.from_numpy(keys_f), stable=True)
+    sk, perm = sk.numpy(), perm.numpy()
+    row_of = np.where(sk < 0, -1, np.where(sk >= R, R, sk))
+    f = perm
+    pos_e = f if slots == 1 else (f % rows) * slots + f // rows
+    rng = np.random.default_rng(seed)
+    start = rng.integers(-2 ** 31, 2 ** 31, R)       # torch.empty: garbage
+    end = rng.integers(-2 ** 31, 2 ** 31, R)
+    start[rng.integers(0, R, 5)] = rng.integers(0, max(n, 1), 5)
+    for p in range(n):
+        k = row_of[p]
+        if 0 <= k < R:
+            if p == 0 or row_of[p - 1] != k:
+                start[k] = p
+            if p == n - 1 or row_of[p + 1] != k:
+                end[k] = p + 1
+    longs = set()
+    for p in range(n):
+        k = row_of[p]
+        if (0 <= k < R and (p == 0 or row_of[p - 1] != k)
+                and p + tscatter.LONG_RUN < n
+                and row_of[p + tscatter.LONG_RUN] == k):
+            longs.add(int(k))
+    runs = []
+    for r in range(R):                       # scatter_rows_kernel's test
+        s0 = int(start[r])
+        ok = 0 <= s0 < n and row_of[s0] == r
+        runs.append((s0, int(end[r])) if ok else (0, 0))
+    return runs, pos_e, row_of, longs
+
+
+# small step shapes: the temporal tables, the vocabulary-level tables, the
+# user and item tables at a small batch, chunk edges, long runs
+_STEP_CASES = {"hour": ((4096,), 24), "day": ((4096,), 7),
+               "dept": ((3706,), 9), "user": ((2048,), 6040),
+               "item": ((1024, 5), 3706), "ragged": ((3 * 2048 + 77,), 30),
+               "one_id": ((600, 5), 3706), "at_limit": ((4096,), 11264),
+               "small_2d": ((700, 5), 40)}
+
+
+def _model_ids(name):
+    if name in _STEP_CASES:
+        shape, rows = _STEP_CASES[name]
+        rng = np.random.default_rng(len(name))
+        ids = rng.integers(-2, rows + 2, shape)
+        if name == "one_id":
+            ids[:] = 1234
+        return ids.astype(np.int32), rows
+    ids, _, rows = _case(name, seed=7)
+    return ids, rows
+
+
+def _stable_order(ids, R):
+    """np.argsort(kind="stable") of the flattened ids in range: each
+    sorted position's row of grads and row, and the CSR of runs."""
+    keys_f, e_f, _, _ = _flat_rows(ids)
+    kept = np.flatnonzero((keys_f >= 0) & (keys_f < R))
+    order = kept[np.argsort(keys_f[kept], kind="stable")]
+    rows = keys_f[order]
+    return e_f[order], rows, np.searchsorted(rows, np.arange(R + 1))
+
+
+@pytest.mark.parametrize("name", _CASES + tuple(_STEP_CASES))
+def test_counting_grouping_is_a_stable_argsort(name):
+    """The kernel's index arithmetic for tables up to ``ROW_LIMIT`` rows
+    equals ``np.argsort(kind="stable")`` of the flattened ids."""
+    ids, R = _model_ids(name)
+    assert tscatter.counting_route(R, ids.size)
+    start, pos_e, row_of, longs = _counting_model(ids, R)
+    want_e, want_rows, want_start = _stable_order(ids, R)
+    assert np.array_equal(start, want_start)
+    assert np.array_equal(pos_e, want_e)
+    assert np.array_equal(row_of, want_rows)
+    assert longs == {r for r in range(R) if np.diff(want_start)[r]
+                     > tscatter.LONG_RUN}
+
+
+def test_counting_grouping_grows_its_chunks():
+    """Past ``CHUNK * MAX_CHUNKS`` positions a chunk grows (a multiple of
+    the block's threads), so there are at most ``MAX_CHUNKS`` blocks."""
+    n = tscatter.CHUNK * tscatter.MAX_CHUNKS + 1000
+    assert tscatter.chunk_size(n) % 256 == 0
+    assert tscatter.num_chunks(n) <= tscatter.MAX_CHUNKS
+    assert tscatter.chunk_size(n) * tscatter.num_chunks(n) >= n
+    assert tscatter.chunk_size(tscatter.MAX_CHUNKS
+                               * tscatter.MAX_CHUNK) == tscatter.MAX_CHUNK
+    assert not tscatter.counting_route(3, tscatter.MAX_CHUNKS
+                                       * tscatter.MAX_CHUNK + 1)
+    rng = np.random.default_rng(0)
+    ids = rng.integers(-1, 8, n).astype(np.int32)
+    start, pos_e, row_of, _ = _counting_model(ids, 7)
+    want_e, want_rows, want_start = _stable_order(ids, 7)
+    assert np.array_equal(start, want_start)
+    assert np.array_equal(pos_e, want_e) and np.array_equal(row_of, want_rows)
+
+
+@pytest.mark.parametrize("name", _CASES + ("item", "one_id", "above_limit"))
+def test_sorted_grouping_rejects_rows_no_id_names(name):
+    """The route above ``ROW_LIMIT`` (and the caller's grouping): rows no
+    id names keep garbage starts, which the adds reject; every other row
+    gets its run."""
+    if name == "above_limit":
+        rng = np.random.default_rng(3)
+        ids, R = rng.integers(-2, 11267, (900, 5)).astype(np.int32), 11265
+        assert not tscatter.counting_route(R, ids.size)
+    else:
+        ids, R = _model_ids(name)
+    runs, pos_e, row_of, longs = _sorted_model(ids, R)
+    want_e, want_rows, want_start = _stable_order(ids, R)
+    lo = int(np.searchsorted(row_of, 0))
+    got_e = np.concatenate([pos_e[s:t] for s, t in runs] + [[]])
+    assert np.array_equal(got_e.astype(np.int64), want_e)
+    assert [t - s for s, t in runs] == np.diff(want_start).tolist()
+    assert all(s - lo == want_start[r] for r, (s, t) in enumerate(runs)
+               if t > s)
+    assert longs == {r for r in range(R) if np.diff(want_start)[r]
+                     > tscatter.LONG_RUN}
+
+
+@pytest.mark.parametrize("name", _CASES + ("hour", "item", "one_id"))
 def test_kernel_bookkeeping_replays_the_plain_order(name):
-    """What the kernel does with ``_runs``' output, replayed in NumPy: for
-    each row, its run of sorted positions in order, each position's row of
-    grads by the kernel's mapping, summed from 0.0 in f32."""
-    ids, g, rows = _case(name, seed=7)
-    sorted_ids, perm, r, slots = tscatter._runs(torch.from_numpy(ids))
-    assert sorted_ids.dtype == torch.int32 and perm.dtype == torch.int64
-    assert r * slots == ids.size
-    sorted_ids, perm = sorted_ids.numpy(), perm.numpy()
+    """What the kernel does with its grouping, replayed in NumPy: for each
+    row, its run of sorted positions in order, each position's row of
+    grads, summed from 0.0 in f32."""
+    ids, rows = _model_ids(name)
+    rng = np.random.default_rng(5)
+    g = rng.normal(size=ids.shape + (6,)).astype(np.float32)
+    start, pos_e, _, _ = _counting_model(ids, rows)
     g2 = _rounded(g.reshape(-1, g.shape[-1]), "split")
     out = np.zeros((rows, g.shape[-1]), np.float32)
     for i in range(rows):
-        lo, hi = np.searchsorted(sorted_ids, [i, i + 1])
-        for f in perm[lo:hi]:
-            e = f if slots == 1 else (f % r) * slots + f // r
+        for e in pos_e[start[i]:start[i + 1]]:
             out[i] += g2[e]
     want = tscatter.scatter_add_ref(torch.from_numpy(ids),
                                     torch.from_numpy(g), rows, "split")
     assert np.array_equal(out.view(np.int32), want.numpy().view(np.int32))
+
+
+def test_kernel_constants_match_the_wrapper():
+    """``ops/scatter.py``'s copies of the kernel's constants, read from
+    ``csrc/scatter_add.cu``."""
+    import os
+    import re
+
+    src = open(os.path.join(os.path.dirname(tscatter.__file__), "csrc",
+                            "scatter_add.cu")).read()
+    const = {k: int(v) for k, v in re.findall(
+        r"constexpr int (k\w+) = (\d+);", src)}
+    assert const["kCountRowLimit"] == tscatter.ROW_LIMIT
+    assert const["kChunk"] == tscatter.CHUNK
+    assert const["kMaxChunk"] == tscatter.MAX_CHUNK
+    assert const["kMaxChunks"] == tscatter.MAX_CHUNKS
+    assert const["kThreads"] // 32 == tscatter.WARPS
+    assert const["kLongRun"] == tscatter.LONG_RUN
+    assert const["kSmallRows"] == tscatter.SMALL_ROWS
+    assert const["kSmallN"] == tscatter.SMALL_N
+    # scatter_small_kernel's shared memory: its list and the ring
+    assert 4 * tscatter.SMALL_N + 7 * 32 * 32 * 4 <= 232448 - 64
+    # group_place_kernel's shared memory: 16-bit counts a (warp, row) and
+    # an int a row, within the 227 KB a block may have
+    assert 20 * tscatter.ROW_LIMIT <= 232448 - 64
+    assert tscatter.MAX_CHUNK < 2 ** 16 and tscatter.MAX_CHUNK % 256 == 0
+
+
+@pytest.mark.parametrize("mode", ("f32", "split"))
+@pytest.mark.parametrize("n,rows", [(2500, 300), (4096, 7), (1, 3)])
+def test_grouped_entry_equals_b2_on_its_ids(mode, n, rows):
+    """``scatter_add_grouped`` given ``torch.sort``'s grouping equals
+    ``onehot_scatter_add`` on the ids bit for bit, out-of-range rows
+    dropped alike."""
+    rng = np.random.default_rng(n)
+    ids = torch.from_numpy(rng.integers(-1, rows + 1, n))
+    g = torch.from_numpy(rng.normal(size=(n, 12)).astype(np.float32))
+    keys, order = torch.sort(ids, stable=True)
+    got = tscatter.scatter_add_grouped(order, keys, g, rows, mode=mode)
+    want = tscatter.onehot_scatter_add(ids, g, rows, mode=mode)
+    assert torch.equal(got, want)
+    assert np.array_equal(got.numpy().view(np.int32),
+                          _sequential(ids.numpy(), g.numpy(), rows,
+                                      mode).view(np.int32))
+    with pytest.raises(ValueError):
+        tscatter.scatter_add_grouped(order[1:], keys, g, rows)
+
+
+def test_sparse_combine_keeps_the_parents_bits():
+    """``combine_duplicate_rows`` through the grouped entry: ``rep_ids``
+    and ``totals`` equal to the former B2 call over each occurrence's
+    segment, bit for bit."""
+    from ncf_tpu_torch.train.sparse import combine_duplicate_rows
+
+    rng = np.random.default_rng(2)
+    ids = torch.from_numpy(rng.zipf(1.3, 3000) % 700)
+    g = torch.from_numpy(rng.normal(size=(3000, 16)).astype(np.float32))
+    rep_ids, totals = combine_duplicate_rows(ids, g, 700)
+    n = ids.numel()
+    ids_s, order = torch.sort(ids, stable=True)
+    boundary = torch.ones_like(ids_s)
+    boundary[1:] = ids_s[1:] != ids_s[:-1]
+    seg_idx = torch.cumsum(boundary, 0) - 1
+    seg_of = torch.empty_like(seg_idx)
+    seg_of[order] = seg_idx
+    want = tscatter.onehot_scatter_add(seg_of, g, n, mode="f32")
+    want_ids = torch.arange(n) + 700
+    want_ids.scatter_(0, seg_idx, ids_s)
+    assert torch.equal(rep_ids, want_ids)
+    assert np.array_equal(totals.numpy().view(np.int32),
+                          want.numpy().view(np.int32))
+
+
+def _record_launches(monkeypatch):
+    """The card wrappers run on CPU tensors with the C call recorded and
+    ``torch.sort`` counted."""
+    calls, sorts = [], []
+    real_sort = torch.sort
+    monkeypatch.setattr(tscatter._kernels, "launch",
+                        lambda *a: calls.append(a))
+    monkeypatch.setattr(tscatter._kernels, "stream_of", lambda t: 0)
+    monkeypatch.setattr(torch, "sort",
+                        lambda *a, **k: sorts.append(1) or real_sort(*a, **k))
+    return calls, sorts
+
+
+@pytest.mark.parametrize("rows,counting", [(7, True), (11264, True),
+                                           (11265, False)])
+def test_card_route_sorts_only_above_the_limit(monkeypatch, rows, counting):
+    calls, sorts = _record_launches(monkeypatch)
+    ids = torch.zeros((40, 5), dtype=torch.int64)
+    tscatter._scatter_cuda(ids, torch.zeros((40, 5, 8)), rows, "split")
+    (args,) = calls
+    assert len(sorts) == (0 if counting else 1)
+    lib, fn, codes = tscatter.C_ENTRY
+    assert args[:3] == (lib, fn, codes) and len(args) == 3 + len(codes)
+    ids_ptr, id_bytes, r, slots, keys_ptr = args[3:8]
+    assert (r, slots) == (40, 5)
+    assert (ids_ptr != 0, keys_ptr == 0) == (counting, counting)
+    assert id_bytes == (8 if counting else 0)
+    assert args[-3] == tscatter.scratch_ints(200, rows, counting)
+
+
+def test_grouped_card_route_does_not_sort(monkeypatch):
+    calls, sorts = _record_launches(monkeypatch)
+    keys, order = torch.sort(torch.tensor([3, 1, 1, 0, 3]), stable=True)
+    sorts.clear()
+    tscatter._grouped_cuda(order, keys, torch.zeros((5, 4)), 5, "f32")
+    assert not sorts and len(calls) == 1
+    assert calls[0][5:8] == (5, 1, keys.data_ptr())
 
 
 @pytest.mark.parametrize("table_dtype", ("float32", "bfloat16"))
