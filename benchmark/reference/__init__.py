@@ -1,0 +1,2 @@
+"""The plain reference that decides ``correct``: imports nothing of the
+port and takes nothing the program made."""

@@ -1,0 +1,1 @@
+"""Traffic mixes (``<name>.json``) and the generator that reads them."""
