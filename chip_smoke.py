@@ -211,10 +211,11 @@ Phases (each asserts; any failure exits non-zero and prints no result):
    1,000 of each held to its schema; the ``Trainer`` on that log
    (``advanced_ncf_ml1m.yaml`` as shipped, sized to the log): one epoch
    with B1, B2 (seven a step), B3, B4f and B4b counted, the loss falling,
-   ``validate`` and a best checkpoint; ``profiling.StepTimer`` over 20
-   bare steps, then three more inside ``profiling.trace`` with
-   ``annotate("train_step")``, the written Chrome trace holding the spans
-   and a device event of each training kernel by its symbol; the
+   ``validate`` and a best checkpoint; 20 bare steps timed by the host
+   clock up to one closing ``torch.cuda.synchronize()``, then three more
+   inside ``profiling.trace``, the written Chrome trace holding their
+   ``step`` spans and a device event of each training kernel by its
+   symbol; the
    ``monitoring`` alerts over the ``Trainer``'s records (``low-hr10``
    fires exactly when hr@10 < 0.3), the API over the best checkpoint (64
    single customers and ``_api_requests``) and ``build_dashboard`` over
@@ -5110,7 +5111,7 @@ WAREHOUSE = {"num_users": 6040, "num_items": 3706, "num_stores": 20,
 WAREHOUSE_TABLES = ("loyalty_customer_dim", "store_dim", "product_features",
                     "transaction_header_fact", "transaction_body_fact")
 WAREHOUSE_SAMPLE = 1000     # rows of each table held to its schema
-TOOLS_STEPS = 20            # bare steps timed by StepTimer
+TOOLS_STEPS = 20            # bare steps timed by the host clock
 TOOLS_TRACED = 3            # steps inside the trace, after the timed ones
 TOOLS_TRACE_TRIES = 3       # traces taken until one holds every kernel
 TOOLS_SINGLES = 64          # single-customer dispatch calls
@@ -5237,7 +5238,7 @@ def _tools_trainer(torch, inter, root):
 
 
 def _trace_kernels(trace_dir):
-    """(the ``train_step`` spans, {kernel: device events}) of the Chrome
+    """(the steps' ``step`` spans, {kernel: device events}) of the Chrome
     trace written under ``trace_dir``."""
     import glob
 
@@ -5245,27 +5246,26 @@ def _trace_kernels(trace_dir):
     check(len(files) == 1, f"tools: trace files {files}")
     with open(files[0]) as f:
         events = json.load(f)["traceEvents"]
-    spans = sum(1 for e in events if e.get("name") == "train_step"
-                and e.get("cat") == "user_annotation")
+    spans = sum(1 for e in events if e.get("name") == "step")
     kernels = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
     return spans, {k: sum(1 for n in kernels if sym in n)
                    for k, sym in TOOLS_SYMBOLS.items()}
 
 
 def _tools_profiling(torch, t, cfg, root, phase11):
-    """Part 3: ``StepTimer`` over ``TOOLS_STEPS`` bare steps on the
-    warehouse batches from seeded params, then ``TOOLS_TRACED`` more
-    inside ``profiling.trace`` with ``annotate("train_step")`` (after the
-    timed steps: the profiler's start-up, seconds on its first use, and
-    the trace's write stay out of the timer); the written trace must
-    hold the spans and a device event of each training kernel (traced
-    again, up to ``TOOLS_TRACE_TRIES`` times, where a trace comes back
-    without them)."""
+    """Part 3: ``TOOLS_STEPS`` bare steps on the warehouse batches from
+    seeded params, timed by the host clock up to one closing device
+    sync, then ``TOOLS_TRACED`` more inside ``profiling.trace`` (after
+    the timed steps: the profiler's start-up, seconds on its first use,
+    and the trace's write stay out of the timing); the written trace
+    must hold each step's ``step`` span and a device event of each
+    training kernel (traced again, up to ``TOOLS_TRACE_TRIES`` times,
+    where a trace comes back without them)."""
     import shutil
 
     from ncf_tpu_torch.models import advanced_ncf, get_model
     from ncf_tpu_torch.train import make_optimizer, make_train_step
-    from ncf_tpu_torch.utils.profiling import StepTimer, annotate, trace
+    from ncf_tpu_torch.utils.profiling import trace
 
     batches = list(t.train_iter.epoch(1))
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -5290,17 +5290,18 @@ def _tools_profiling(torch, t, cfg, root, phase11):
         shutil.rmtree(d, ignore_errors=True)
         with trace(d):
             for _ in range(TOOLS_TRACED):
-                with annotate("train_step"):
-                    one()
+                one()
 
     one()                                   # allocates the optimizer state
     torch.cuda.synchronize()
-    timer = StepTimer(batch_size=cfg.train.batch_size)
-    timer.tick()
+    t0 = time.perf_counter()
     for _ in range(TOOLS_STEPS):
-        one()
-        timer.tick()                        # no device sync
-    stats = timer.stats(block_on=box["p"])  # one sync
+        one()                               # no device sync
+    torch.cuda.synchronize()
+    bare_s = time.perf_counter() - t0
+    stats = {"steps": TOOLS_STEPS,
+             "step_ms_mean": bare_s / TOOLS_STEPS * 1e3,
+             "examples_per_s": cfg.train.batch_size * TOOLS_STEPS / bare_s}
     trace_dir = os.path.join(root, "trace")
     t0 = time.perf_counter()
     traced(trace_dir)
@@ -5313,7 +5314,7 @@ def _tools_profiling(torch, t, cfg, root, phase11):
         tries += 1
         traced(trace_dir)
         spans, events = _trace_kernels(trace_dir)
-    check(spans == TOOLS_TRACED, f"tools: {spans} train_step spans in the "
+    check(spans == TOOLS_TRACED, f"tools: {spans} step spans in the "
           f"trace, want {TOOLS_TRACED}")
     missing = [k for k, n in events.items() if n == 0]
     check(not missing, f"tools: no device event of {missing} in "
@@ -5328,14 +5329,13 @@ def _tools_profiling(torch, t, cfg, root, phase11):
     ref = ("not run (--tools-only)" if phase11 is None else
            f"{phase11['step_ms_host_clock']!r} ms, "
            f"{phase11['examples_per_s']!r} examples/s")
-    log(f"tools: StepTimer over {int(stats['steps'])} steps: p50 "
-        f"{stats['step_ms_p50']!r} ms, mean {stats['step_ms_mean']!r} ms, "
-        f"p99 {stats['step_ms_p99']!r} ms, {stats['examples_per_s']!r} "
-        f"examples/s (by the mean) at batch {cfg.train.batch_size}; phase "
+    log(f"tools: {TOOLS_STEPS} bare steps: mean "
+        f"{stats['step_ms_mean']!r} ms, {stats['examples_per_s']!r} "
+        f"examples/s at batch {cfg.train.batch_size}; phase "
         f"11's config A joint auto: {ref}; trace of {TOOLS_TRACED} steps "
         f"{trace_s!r} s, {tries} tr(y/ies), spans {spans}, device events "
         f"{json.dumps(events)}; loss {first!r} -> {last!r}")
-    return launches, {"step_timer": stats, "phase11_a_joint_auto": (
+    return launches, {"bare_steps": stats, "phase11_a_joint_auto": (
         None if phase11 is None else {k: phase11[k] for k in (
             "step_ms_host_clock", "examples_per_s")}),
         "trace_s": trace_s, "trace_tries": tries, "trace_spans": spans,
@@ -5508,7 +5508,7 @@ def phase_tools(torch, card, phase11=None):
     ``Trainer`` on its log, ``profiling`` around bare steps,
     ``monitoring`` over the ``Trainer``'s and the API's records, and
     ``doctor`` through the CLI.  ``phase11``: phase 11's config A joint
-    auto step summary, printed beside ``StepTimer``'s (None alone).
+    auto step summary, printed beside the bare steps' (None alone).
     Returns ({kernel: launches}, summary)."""
     import shutil
 

@@ -21,6 +21,7 @@ from ncf_tpu_torch import native
 from ncf_tpu_torch.data.interactions import Interactions
 from ncf_tpu_torch.data.synthetic import temporal_features
 from ncf_tpu_torch.utils.device import DeviceLike, resolve_device
+from ncf_tpu_torch.utils.profiling import annotate
 
 Batch = Dict[str, np.ndarray]
 
@@ -190,8 +191,12 @@ class DeviceEpochPipeline:
               steps_per_dispatch: int = 1) -> Iterator[Dict[str, torch.Tensor]]:
         """Yield device-resident batches: [B] columns when
         ``steps_per_dispatch == 1``, stacked [K, B] groups otherwise
-        (a ragged final group at its own size, like ``group_batches``)."""
-        arrays = self.build_from_permutation(self.permutation(epoch_idx))
+        (a ragged final group at its own size, like ``group_batches``).
+        The build is the span ``pipeline.epoch`` while a profiler
+        records."""
+        with annotate("pipeline.epoch"):
+            arrays = self.build_from_permutation(
+                self.permutation(epoch_idx))
         nb, K = self.num_batches, int(steps_per_dispatch)
         if K <= 1:
             for i in range(nb):

@@ -18,9 +18,12 @@ from ncf_tpu_torch.ops.topk import (
 
 
 def launch_counters():
-    """Every kernel wrapper's launch counter, by kernel name."""
+    """Every counter the program keeps, by name: each kernel wrapper's
+    launches (by kernel name), and the sparse update's rows a combine
+    touches and processes (counted while a profiler records)."""
     from ncf_tpu_torch.ops import (gather, sampler, scatter, temporal_sum,
                                    topk, tower)
+    from ncf_tpu_torch.train.sparse import combine_duplicate_rows
 
     return {"topk_scores_streaming": topk.topk_scores_streaming.launches,
             "fused_tower_fwd": tower.fused_tower.fwd_launches,
@@ -32,7 +35,9 @@ def launch_counters():
                 topk.topk_scores_streaming_int8.launches,
             "gather_rows": gather.gather_rows.launches,
             "topk_scores_pallas": topk.topk_scores_pallas.launches,
-            "topk_scores_segmented": topk.topk_scores_segmented.launches}
+            "topk_scores_segmented": topk.topk_scores_segmented.launches,
+            "sparse_rows_touched": combine_duplicate_rows.rows_touched,
+            "sparse_rows_processed": combine_duplicate_rows.rows_processed}
 
 
 __all__ = [

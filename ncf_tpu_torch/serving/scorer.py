@@ -21,6 +21,14 @@ on the raw table.
 Each request makes one device-to-host copy: the values and the ids come
 back together in one ``.cpu()``.
 
+While a profiler records, each scorer's ``topk_for_users*`` is the span
+``serve.call``, and its phases are spans under it (``utils/profiling.py``):
+``serve.ids`` (the ids to the card), ``serve.bias`` (the item bias and
+the prepared table, cached or built), ``serve.query`` (the query
+gather), ``serve.topk`` (the top-k dispatch and any rescore),
+``serve.to_host`` (the one copy) and ``serve.finish`` (the exclusion
+filter and the sigmoid, on the host).
+
 ``SequenceRescoreScorer`` serves ``use_sequence`` models in two stages:
 candidates from the decomposition at a population-mean sequence context,
 then an exact rescore of them with each user's real history through
@@ -32,6 +40,7 @@ NeuMF): ``score_candidates`` over item chunks with a running merge.
 
 from __future__ import annotations
 
+import functools
 import threading
 from typing import Dict, Optional, Tuple
 
@@ -46,6 +55,7 @@ from ncf_tpu_torch.ops.topk import (PreparedItemsInt8, _topk_lowest_index,
                                     rescore_exact, topk_scores)
 from ncf_tpu_torch.utils.config import ModelConfig
 from ncf_tpu_torch.utils.device import torch_dtype
+from ncf_tpu_torch.utils.profiling import annotate
 
 # the prepared table only pays when retrieval takes the streaming kernel
 # (large catalogs on the card); below this the dense path wins anyway
@@ -63,6 +73,15 @@ _INT8_OVERFETCH = 6
 # (seg_width, seg_top) of each retrieval preset
 _PRESETS = {"exact": (128, 2), "fast": (64, 1), "int8": (128, 1),
             "int8-fast": (128, 1)}
+
+
+def _served(fn):
+    """``fn`` (a ``topk_for_users*``) inside the span ``serve.call``."""
+    @functools.wraps(fn)
+    def call(*args, **kwargs):
+        with annotate("serve.call"):
+            return fn(*args, **kwargs)
+    return call
 
 
 def _context_key(temporal: Optional[Dict[str, int]]) -> Tuple:
@@ -167,12 +186,14 @@ class AdvancedNCFScorer:
         where retrieval takes another path."""
         if not self._prepares():
             return None
-        if self._int8:
-            qrow = (self._q_maxabs if q_maxabs is None else q_maxabs)[None, :]
-            return self._cached(key, lambda: prepare_items_int8(
-                self.item_vecs, bias, qrow, seg_width=self._seg_width))
-        return self._cached(key, lambda: prepare_items(
-            self.item_vecs, bias, seg_width=self._seg_width))
+        with annotate("serve.bias"):
+            if self._int8:
+                qrow = (self._q_maxabs if q_maxabs is None
+                        else q_maxabs)[None, :]
+                return self._cached(key, lambda: prepare_items_int8(
+                    self.item_vecs, bias, qrow, seg_width=self._seg_width))
+            return self._cached(key, lambda: prepare_items(
+                self.item_vecs, bias, seg_width=self._seg_width))
 
     def _tower_logit(self, item_mlp: torch.Tensor,
                      t_row: Optional[torch.Tensor]) -> torch.Tensor:
@@ -232,7 +253,7 @@ class AdvancedNCFScorer:
     def item_bias(self, temporal: Optional[Dict[str, int]] = None) -> torch.Tensor:
         """b_i(t) [I], cached per temporal context."""
         key = _context_key(temporal)
-        with self._cache_lock:
+        with annotate("serve.bias"), self._cache_lock:
             if key not in self._bias_cache:
                 self._cache_bias(key, self._mlp_pred_all_items(temporal))
             return self._bias_cache[key]
@@ -240,7 +261,8 @@ class AdvancedNCFScorer:
     # ----------------------------------------------------------- queries
 
     def _ids(self, ids) -> torch.Tensor:
-        return torch.as_tensor(ids, dtype=torch.long, device=self.device)
+        with annotate("serve.ids"):
+            return torch.as_tensor(ids, dtype=torch.long, device=self.device)
 
     def user_query(self, user_ids) -> torch.Tensor:
         """Query vectors [B, dmf] for registered user ids."""
@@ -274,6 +296,7 @@ class AdvancedNCFScorer:
                 item_mlp, self.params["temporal"]["hour"][hour])
             return self._cache_bias(key, mlp_pred)
 
+    @_served
     def topk_for_users_hourly(
         self,
         user_ids,
@@ -283,12 +306,14 @@ class AdvancedNCFScorer:
     ) -> Tuple[np.ndarray, np.ndarray]:
         """Exact top-k under the demo's hour-of-day scoring: the hour
         folds into the query vector + a cached per-hour item bias."""
-        mod = self._hour_mod(hour)
-        bias = self._hourly_item_bias(hour)
+        with annotate("serve.bias"):
+            mod = self._hour_mod(hour)
+            bias = self._hourly_item_bias(hour)
         return self._retrieve(self._ids(user_ids), mod, ("hour_bias", hour),
                               bias, k, exclude,
                               q_maxabs=self._q_maxabs * mod.abs())
 
+    @_served
     def topk_for_users(
         self,
         user_ids,
@@ -310,9 +335,10 @@ class AdvancedNCFScorer:
         top-k (with the int8 tiers' over-fetch and exact rescore) or the
         dispatch's other paths, one host copy, exclusion filtering,
         sigmoid."""
-        q = self.user_queries[ids]
-        if mod is not None:
-            q = q * mod[None, :]
+        with annotate("serve.query"):
+            q = self.user_queries[ids]
+            if mod is not None:
+                q = q * mod[None, :]
         fetch = k if exclude is None else min(
             self.cfg.num_items, k + exclude.shape[1])
         int8_cap = fetch + (_INT8_OVERFETCH if self._int8_rescore else 0)
@@ -322,39 +348,47 @@ class AdvancedNCFScorer:
             # take the exact bf16-tier routing instead (the reference's):
             # a prepared table at seg 128/2 (B5) while fetch fits the
             # merge, else the blocked exact path on the raw table
+            prep = None
             if fetch <= 64 and self._prepares():
-                prep = self._cached(("bf16_fallback", key), lambda: (
-                    prepare_items(self.item_vecs, bias, seg_width=128)))
-                vals, idxs = topk_scores(q, prep, fetch, seg_top=2)
-            else:
-                vals, idxs = topk_scores(q, self.item_vecs, fetch, bias,
-                                         impl=self.impl, seg_top=2)
+                with annotate("serve.bias"):
+                    prep = self._cached(("bf16_fallback", key), lambda: (
+                        prepare_items(self.item_vecs, bias, seg_width=128)))
+            with annotate("serve.topk"):
+                if prep is not None:
+                    vals, idxs = topk_scores(q, prep, fetch, seg_top=2)
+                else:
+                    vals, idxs = topk_scores(q, self.item_vecs, fetch, bias,
+                                             impl=self.impl, seg_top=2)
         else:
             # fetch > 64 exceeds the streaming kernel's merge: a prepared
             # table would be unfolded per call by the dispatch — the
             # blocked plain path reads the raw table in place instead
             prep = (self._prepared(key, bias, q_maxabs) if fetch <= 64
                     else None)
-            if prep is not None:
-                kern_fetch = fetch
-                if self._int8_rescore:
-                    # int8 order misplaces near-ties: fetch extra
-                    # candidates, rescore exactly, keep the true best
-                    kern_fetch = min(fetch + _INT8_OVERFETCH,
-                                     self.cfg.num_items)
-                vals, idxs = topk_scores(q, prep, kern_fetch,
-                                         seg_top=self._seg_top)
-                if self._int8_rescore and isinstance(prep, PreparedItemsInt8):
-                    vals, idxs = rescore_exact(q, self.item_vecs, bias, idxs)
-                    vals, idxs = vals[:, :fetch], idxs[:, :fetch]
-            else:
-                vals, idxs = topk_scores(q, self.item_vecs, fetch, bias,
-                                         impl=self.impl,
-                                         seg_top=self._seg_top)
+            with annotate("serve.topk"):
+                if prep is not None:
+                    kern_fetch = fetch
+                    if self._int8_rescore:
+                        # int8 order misplaces near-ties: fetch extra
+                        # candidates, rescore exactly, keep the true best
+                        kern_fetch = min(fetch + _INT8_OVERFETCH,
+                                         self.cfg.num_items)
+                    vals, idxs = topk_scores(q, prep, kern_fetch,
+                                             seg_top=self._seg_top)
+                    if (self._int8_rescore
+                            and isinstance(prep, PreparedItemsInt8)):
+                        vals, idxs = rescore_exact(q, self.item_vecs, bias,
+                                                   idxs)
+                        vals, idxs = vals[:, :fetch], idxs[:, :fetch]
+                else:
+                    vals, idxs = topk_scores(q, self.item_vecs, fetch, bias,
+                                             impl=self.impl,
+                                             seg_top=self._seg_top)
         vals, idxs = _to_host(vals, idxs)
-        if exclude is not None:
-            vals, idxs = _filter_excluded(vals, idxs, exclude, k)
-        return _sigmoid(vals), idxs
+        with annotate("serve.finish"):
+            if exclude is not None:
+                vals, idxs = _filter_excluded(vals, idxs, exclude, k)
+            return _sigmoid(vals), idxs
 
     @torch.no_grad()
     def score_pairs(self, user_ids, item_ids,
@@ -442,6 +476,7 @@ class SequenceRescoreScorer(AdvancedNCFScorer):
             self._temporal_ids(ids.shape[0], temporal), self.item_dept,
             self.item_cat, history=hist)
 
+    @_served
     @torch.no_grad()
     def topk_for_users(
         self,
@@ -470,24 +505,28 @@ class SequenceRescoreScorer(AdvancedNCFScorer):
         # tiers keep the reference's dequantized unfold
         prep = (self._prepared(key, bias) if fetch <= 64 or self._int8
                 else None)
-        q = self.user_queries[ids]
-        if prep is not None:
-            _, cand = topk_scores(q, prep, fetch, seg_top=self._seg_top)
-        else:
-            _, cand = topk_scores(q, self.item_vecs, fetch, bias,
-                                  impl=self.impl, seg_top=self._seg_top)
-        cand = cand.long()
-        logits = self._rescore(ids, cand, temporal)
-        if exclude is not None:
-            excl = torch.as_tensor(exclude, dtype=torch.long,
-                                   device=self.device)
-            hit = (cand[:, :, None] == excl[:, None, :]).any(-1)
-            logits = torch.where(hit, torch.full_like(logits, -np.inf),
-                                 logits)
-        # ties to the lower index, as the reference's ``lax.top_k``
-        vals, sel = _topk_lowest_index(logits, min(k, fetch))
-        vals, idxs = _to_host(vals, torch.gather(cand, 1, sel.long()))
-        return _sigmoid(vals), idxs
+        with annotate("serve.query"):
+            q = self.user_queries[ids]
+        with annotate("serve.topk"):
+            if prep is not None:
+                _, cand = topk_scores(q, prep, fetch, seg_top=self._seg_top)
+            else:
+                _, cand = topk_scores(q, self.item_vecs, fetch, bias,
+                                      impl=self.impl, seg_top=self._seg_top)
+            cand = cand.long()
+            logits = self._rescore(ids, cand, temporal)
+            if exclude is not None:
+                excl = torch.as_tensor(exclude, dtype=torch.long,
+                                       device=self.device)
+                hit = (cand[:, :, None] == excl[:, None, :]).any(-1)
+                logits = torch.where(hit, torch.full_like(logits, -np.inf),
+                                     logits)
+            # ties to the lower index, as the reference's ``lax.top_k``
+            vals, sel = _topk_lowest_index(logits, min(k, fetch))
+            idxs = torch.gather(cand, 1, sel.long())
+        vals, idxs = _to_host(vals, idxs)
+        with annotate("serve.finish"):
+            return _sigmoid(vals), idxs
 
     @torch.no_grad()
     def score_pairs(self, user_ids, item_ids,
@@ -502,12 +541,14 @@ class SequenceRescoreScorer(AdvancedNCFScorer):
 def _to_host(vals: torch.Tensor, idxs: torch.Tensor):
     """(values f32, ids int32) as NumPy arrays in one device-to-host copy:
     the ids ride as f32 bit patterns."""
-    packed = torch.cat(
-        [vals.to(torch.float32),
-         idxs.to(torch.int32).contiguous().view(torch.float32)],
-        dim=1).cpu().numpy()
-    n = vals.shape[1]
-    return packed[:, :n], np.ascontiguousarray(packed[:, n:]).view(np.int32)
+    with annotate("serve.to_host"):
+        packed = torch.cat(
+            [vals.to(torch.float32),
+             idxs.to(torch.int32).contiguous().view(torch.float32)],
+            dim=1).cpu().numpy()
+        n = vals.shape[1]
+        return packed[:, :n], np.ascontiguousarray(packed[:, n:]).view(
+            np.int32)
 
 
 def _filter_excluded(vals: np.ndarray, idxs: np.ndarray,
@@ -585,19 +626,25 @@ class BruteForceScorer:
             idxs = torch.gather(torch.cat([idxs, cand], 1), 1, sel.long())
         return vals, idxs
 
+    @_served
     def topk_for_users(self, user_ids, k: int = 10, temporal=None,
                        exclude=None) -> Tuple[np.ndarray, np.ndarray]:
-        ids = torch.as_tensor(np.asarray(user_ids), dtype=torch.long,
-                              device=self.device)
-        t = None
-        if temporal is not None:
-            t = {key: torch.full((ids.shape[0],), int(temporal.get(key, 0)),
-                                 dtype=torch.long, device=self.device)
-                 for key in ("hour", "day", "month", "day_of_year")}
+        with annotate("serve.ids"):
+            ids = torch.as_tensor(np.asarray(user_ids), dtype=torch.long,
+                                  device=self.device)
+            t = None
+            if temporal is not None:
+                t = {key: torch.full((ids.shape[0],),
+                                     int(temporal.get(key, 0)),
+                                     dtype=torch.long, device=self.device)
+                     for key in ("hour", "day", "month", "day_of_year")}
         fetch = k if exclude is None else min(
             self.cfg.num_items, k + exclude.shape[1])
-        vals, idxs = _to_host(*self._scan_topk(ids, t, fetch))
-        vals = _sigmoid(vals)
-        if exclude is not None:
-            vals, idxs = _filter_excluded(vals, idxs, exclude, k)
-        return vals, idxs
+        with annotate("serve.topk"):
+            found = self._scan_topk(ids, t, fetch)
+        vals, idxs = _to_host(*found)
+        with annotate("serve.finish"):
+            vals = _sigmoid(vals)
+            if exclude is not None:
+                vals, idxs = _filter_excluded(vals, idxs, exclude, k)
+            return vals, idxs

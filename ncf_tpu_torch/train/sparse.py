@@ -22,6 +22,12 @@ What the port does where the reference leans on XLA:
   (``index_add_``): ``x + (-0.0) == x`` for every ``x``, so each row gets
   exactly one non-zero add, however the adds are ordered, and untouched
   rows keep their bits.
+
+While a profiler records, the combine counts the rows of each call
+(``combine_duplicate_rows.rows_touched``: the distinct in-range ids;
+``.rows_processed``: the positions it and ``apply`` go through, sinks
+included), in ``ops/__init__.py::launch_counters``.  The distinct count
+is read from the card only when the counter is read.
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ from typing import Tuple
 import torch
 
 from ncf_tpu_torch.ops.scatter import scatter_add_grouped
+from ncf_tpu_torch.utils.profiling import RecordedCount, recording
 
 
 def combine_duplicate_rows(ids: torch.Tensor, grads: torch.Tensor,
@@ -46,12 +53,28 @@ def combine_duplicate_rows(ids: torch.Tensor, grads: torch.Tensor,
     boundary = torch.ones_like(ids_s)
     boundary[1:] = ids_s[1:] != ids_s[:-1]
     seg_idx = torch.cumsum(boundary, 0) - 1   # the segment of each
+    if n and recording():
+        _count_rows(ids_s[-1:], seg_idx[-1:], n, num_rows)
     totals = scatter_add_grouped(order, seg_idx, grads.reshape(n, -1), n,
                                  mode="f32")
     rep_ids = torch.arange(n, dtype=torch.int64, device=ids.device) + num_rows
     # every occurrence of a segment writes the same id
     rep_ids.scatter_(0, seg_idx, ids_s)
     return rep_ids, totals
+
+
+combine_duplicate_rows.rows_touched = RecordedCount()
+combine_duplicate_rows.rows_processed = RecordedCount()
+
+
+def _count_rows(last_id: torch.Tensor, last_seg: torch.Tensor, n: int,
+                num_rows: int) -> None:
+    """Count a combine of ``n`` positions: the distinct ids are the last
+    segment's index plus one, less the sinks' segment where the largest
+    id is out of range (one-element views, read with the counter)."""
+    combine_duplicate_rows.rows_touched.add(
+        lambda: int(last_seg) + 1 - int(int(last_id) >= num_rows))
+    combine_duplicate_rows.rows_processed.add(n)
 
 
 @torch.no_grad()

@@ -57,6 +57,14 @@ out over the devices, and runs SPMD on every rank:
 
 On the ``(1, 1)`` mesh every slice is the whole batch, the scale is 1 and
 no collective runs, so the one-process step is this same code.
+
+While a profiler records, a training step is the span ``step`` and its
+phases are spans under it (``utils/profiling.py``): ``step.inputs`` (the
+batch to the device, the negatives' draw, and the sparse step's row
+gathers), ``step.forward`` (the loss), ``step.backward`` (autograd),
+``step.reduce`` (the gradients' all-reduce, under a process group only),
+``step.optimizer`` (the dense update), ``step.sparse_update`` (the
+touched-row combine and rowwise Adagrad) and ``step.metrics``.
 """
 
 from __future__ import annotations
@@ -79,6 +87,7 @@ from ncf_tpu_torch.train.sparse_sharded import (
     sharded_sparse_rowwise_adagrad_update)
 from ncf_tpu_torch.utils.config import Config
 from ncf_tpu_torch.utils.device import DeviceLike, resolve_device
+from ncf_tpu_torch.utils.profiling import annotate
 
 _TEMPORAL = ("hour", "day", "month", "day_of_year")
 
@@ -196,12 +205,15 @@ def _grads(loss_fn, params, *args, rows=None, scale=1.0, **kw):
     leaves, tracked = _track(params)
     rows = {k: r.detach().requires_grad_(True) for k, r in (rows or {}).items()}
     with torch.enable_grad():
-        loss, logits, targets = loss_fn(tracked, *args, **kw, **rows)
-        grads = torch.autograd.grad(loss if scale == 1.0 else loss * scale,
-                                    leaves + list(rows.values()),
-                                    allow_unused=True)
-    grads = [torch.zeros_like(p) if g is None else g
-             for p, g in zip(leaves, grads)] + list(grads[len(leaves):])
+        with annotate("step.forward"):
+            loss, logits, targets = loss_fn(tracked, *args, **kw, **rows)
+        with annotate("step.backward"):
+            grads = torch.autograd.grad(
+                loss if scale == 1.0 else loss * scale,
+                leaves + list(rows.values()), allow_unused=True)
+            grads = [torch.zeros_like(p) if g is None else g
+                     for p, g in zip(leaves, grads)] + list(
+                         grads[len(leaves):])
     return loss.detach(), logits.detach(), targets, grads
 
 
@@ -244,21 +256,22 @@ class _MeshPlan:
         their dcn replicas.  Outside a process group they are whole."""
         if not self.mesh.distributed:
             return grads
-        rep = [i for i in range(len(grads)) if not self._is_sharded(i)]
-        if rep:
-            flat = torch.cat([grads[i].reshape(-1).to(torch.float32)
-                              for i in rep])
-            flat = self.mesh.all_reduce(flat, WORLD)
-            off = 0
-            for i in rep:
-                n = grads[i].numel()
-                grads[i] = flat[off:off + n].view(grads[i].shape).to(
-                    grads[i].dtype)
-                off += n
-        for i in range(len(grads)):
-            if self._is_sharded(i):
-                grads[i] = self.mesh.all_reduce(grads[i], DCN_AXIS)
-        return grads
+        with annotate("step.reduce"):
+            rep = [i for i in range(len(grads)) if not self._is_sharded(i)]
+            if rep:
+                flat = torch.cat([grads[i].reshape(-1).to(torch.float32)
+                                  for i in rep])
+                flat = self.mesh.all_reduce(flat, WORLD)
+                off = 0
+                for i in rep:
+                    n = grads[i].numel()
+                    grads[i] = flat[off:off + n].view(grads[i].shape).to(
+                        grads[i].dtype)
+                    off += n
+            for i in range(len(grads)):
+                if self._is_sharded(i):
+                    grads[i] = self.mesh.all_reduce(grads[i], DCN_AXIS)
+            return grads
 
     def norm_fn(self):
         """The clip's global norm, or None where no leaf is a shard (then
@@ -321,16 +334,21 @@ def make_train_step(
     plan = _MeshPlan(mesh, shardings)
 
     def train_step(params, opt_state, gen, batch, negatives=None):
-        batch = _batch_to(batch, dev)
-        drawn = loss_fn.inputs(batch, gen, consts, negatives)
-        lbatch, ldrawn = plan.slice_batch(batch, drawn)
-        loss, logits, targets, grads = _grads(
-            loss_fn, params, lbatch, gen, consts, None, ldrawn,
-            scale=plan.scale, mesh=plan.mesh)
-        grads = plan.reduce_grads(grads)
-        opt_state = optimizer.update(params, grads, opt_state,
-                                     norm_fn=plan.norm_fn())
-        return params, opt_state, gen, plan.metrics(loss, logits, targets)
+        with annotate("step"):
+            with annotate("step.inputs"):
+                batch = _batch_to(batch, dev)
+                drawn = loss_fn.inputs(batch, gen, consts, negatives)
+                lbatch, ldrawn = plan.slice_batch(batch, drawn)
+            loss, logits, targets, grads = _grads(
+                loss_fn, params, lbatch, gen, consts, None, ldrawn,
+                scale=plan.scale, mesh=plan.mesh)
+            grads = plan.reduce_grads(grads)
+            with annotate("step.optimizer"):
+                opt_state = optimizer.update(params, grads, opt_state,
+                                             norm_fn=plan.norm_fn())
+            with annotate("step.metrics"):
+                metrics = plan.metrics(loss, logits, targets)
+            return params, opt_state, gen, metrics
 
     return train_step
 
@@ -442,22 +460,26 @@ def _make_sparse_body(model, cfg: Config, dense_optimizer, schedule,
     def body(params, opt_state, gen, batch, consts, negatives=None):
         tables = {k: params[k] for k in TABLE_KEYS}
         dense = {k: v for k, v in params.items() if k not in TABLE_KEYS}
-        batch, drawn = plan.slice_batch(
-            batch, loss_fn.inputs(batch, gen, consts, negatives))
-        items, _, history = drawn
-        uids = batch["user_ids"]
-        item_ids = items.reshape(-1)
-        rows = {"user_rows": gather(tables["user_emb"], uids),
-                "item_rows": gather(tables["item_emb"], item_ids).reshape(
-                    items.shape + (-1,))}
-        h_ids = None
-        if history is not None:
-            # padded slots alias the example's positive row (touched
-            # anyway) and get exactly-zero gradients
-            h_ids = torch.where(history >= 0, history,
-                                items[:, :1].to(history.dtype)).reshape(-1)
-            rows["history_rows"] = gather(tables["item_emb"], h_ids).reshape(
-                history.shape + (-1,))
+        with annotate("step.inputs"):
+            batch, drawn = plan.slice_batch(
+                batch, loss_fn.inputs(batch, gen, consts, negatives))
+            items, _, history = drawn
+            uids = batch["user_ids"]
+            item_ids = items.reshape(-1)
+            rows = {"user_rows": gather(tables["user_emb"], uids),
+                    "item_rows": gather(tables["item_emb"],
+                                        item_ids).reshape(
+                                            items.shape + (-1,))}
+            h_ids = None
+            if history is not None:
+                # padded slots alias the example's positive row (touched
+                # anyway) and get exactly-zero gradients
+                h_ids = torch.where(history >= 0, history,
+                                    items[:, :1].to(history.dtype)
+                                    ).reshape(-1)
+                rows["history_rows"] = gather(
+                    tables["item_emb"], h_ids).reshape(
+                        history.shape + (-1,))
         loss, logits, targets, grads = _grads(
             lambda d, *a, **r: loss_fn({**d, **tables}, *a, **r), dense,
             batch, gen, consts, None, drawn, rows=rows, scale=plan.scale,
@@ -470,25 +492,29 @@ def _make_sparse_body(model, cfg: Config, dense_optimizer, schedule,
             g_i = torch.cat([g_i, grads[nd + 2].reshape(-1, g_i.shape[-1])])
             item_upd_ids = torch.cat([item_ids, h_ids.to(item_ids.dtype)])
         with torch.no_grad():
-            # optax's schedule is read at the count before the increment
-            lr_t = schedule(opt_state["count"]) * emb_scale
             g_dense = plan.reduce_grads(list(g_dense))
-            # the clip norm is the dense path's: over the dense gradients
-            # and the per-row totals
-            dense_sq = (torch.stack([g.to(torch.float32).square().sum()
-                                     for g in g_dense]).sum()
-                        if clip > 0 and g_dense else None)
-            _, _, gscale = sharded_sparse_rowwise_adagrad_update(
-                mesh, [tables["user_emb"], tables["item_emb"]],
-                [opt_state["user_acc"], opt_state["item_acc"]],
-                [uids, item_upd_ids], [g_u, g_i], lr_t, eps, ewd,
-                clip=clip, dense_sq=dense_sq)
-            if clip > 0:
-                for g in g_dense:
-                    g.mul_(gscale.to(g.dtype))
-            metrics = plan.metrics(loss, logits, targets)
-            dense_state = dense_optimizer.update(dense, g_dense,
-                                                 opt_state["dense"])
+            with annotate("step.sparse_update"):
+                # optax's schedule is read at the count before the
+                # increment
+                lr_t = schedule(opt_state["count"]) * emb_scale
+                # the clip norm is the dense path's: over the dense
+                # gradients and the per-row totals
+                dense_sq = (torch.stack([g.to(torch.float32).square().sum()
+                                         for g in g_dense]).sum()
+                            if clip > 0 and g_dense else None)
+                _, _, gscale = sharded_sparse_rowwise_adagrad_update(
+                    mesh, [tables["user_emb"], tables["item_emb"]],
+                    [opt_state["user_acc"], opt_state["item_acc"]],
+                    [uids, item_upd_ids], [g_u, g_i], lr_t, eps, ewd,
+                    clip=clip, dense_sq=dense_sq)
+            with annotate("step.metrics"):
+                metrics = plan.metrics(loss, logits, targets)
+            with annotate("step.optimizer"):
+                if clip > 0:
+                    for g in g_dense:
+                        g.mul_(gscale.to(g.dtype))
+                dense_state = dense_optimizer.update(dense, g_dense,
+                                                     opt_state["dense"])
         opt_state = {"dense": dense_state, "user_acc": opt_state["user_acc"],
                      "item_acc": opt_state["item_acc"],
                      "count": (opt_state["count"] + 1).to(torch.int32)}
@@ -519,8 +545,10 @@ def make_sparse_train_step(
     consts = _consts(dev, neg_cdf, item_dept, item_cat, user_history)
 
     def train_step(params, opt_state, gen, batch, negatives=None):
-        return body(params, opt_state, gen, _batch_to(batch, dev), consts,
-                    negatives)
+        with annotate("step"):
+            with annotate("step.inputs"):
+                batch = _batch_to(batch, dev)
+            return body(params, opt_state, gen, batch, consts, negatives)
 
     return train_step
 

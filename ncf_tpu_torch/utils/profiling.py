@@ -1,31 +1,34 @@
-"""Profiling: step timing, throughput counters, device trace capture.
+"""Profiling: device trace capture, the program's spans and counters.
 
 Port of ``ncf_tpu/utils/profiling.py`` on ``torch.profiler``, the
 counterpart of the reference's wall-clock instrumentation (reference:
 src/model/trainer.py:257-259, 274-286 forward/backward timing; :304-324
 tqdm postfix + periodic stat logs; config mentions Vertex TensorBoard,
-config.yaml:43-45, but never writes to it).  ``StepTimer`` times steps
-including the device's work, ``trace`` captures a ``torch.profiler``
-trace of the host and, on a card, of every CUDA kernel (the port's
-hand-written kernels too: they run on PyTorch's stream), and ``annotate``
-names a span of it.
+config.yaml:43-45, but never writes to it).  ``trace`` captures a
+``torch.profiler`` trace of the host and, on a card, of every CUDA kernel
+(the port's hand-written kernels too: they run on PyTorch's stream).
+
+The program marks its phases with ``annotate`` (the serving call's
+``serve.*`` spans, the training step's ``step.*``, ``pipeline.epoch``)
+and keeps ``RecordedCount``s (the sparse update's rows).  Both exist
+exactly while a profiler records (``recording()``): there is no flag.
+With no profiler a span is one check and a shared no-op context, and a
+count adds nothing.  On the profiler's timeline each device operation
+falls to the span whose host interval launched it.
 
 Timing note: CUDA launches are asynchronous, so a host clock read after
-a launch says when the launch returned, not when the kernel ended.
-``StepTimer`` therefore times a chain of calls whose outputs feed the
-next call's inputs (a train step does: the parameters chain through), so
-the queue cannot run ahead by more than its depth, and ``stats(block_on=
-...)`` waits for the card once before it reports.
+a launch says when the launch returned, not when the kernel ended: time
+a chain of calls and wait for the card once at its end.
 """
 
 from __future__ import annotations
 
 import contextlib
-import time
-from dataclasses import dataclass, field
-from typing import Dict, List, Optional
+import threading
+from typing import Callable, List, Union
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 from ncf_tpu_torch.utils.device import DeviceLike, resolve_device
 
@@ -50,55 +53,6 @@ def block_until_ready(tree) -> None:
     ``tree``; CPU tensors need no wait (and CUDA is left uninitialised)."""
     for dev in _cuda_devices(tree, set()):
         torch.cuda.synchronize(dev)
-
-
-@dataclass
-class StepTimer:
-    """Rolling step-time/throughput tracker.
-
-    Usage::
-        timer = StepTimer(batch_size=8192)
-        for batch in data:
-            state = step(state, batch)
-            timer.tick()                      # cheap; no device sync
-        stats = timer.stats(block_on=state)   # syncs once, then reports
-    """
-
-    batch_size: int = 0
-    window: int = 100
-    _times: List[float] = field(default_factory=list)
-    _t_last: Optional[float] = None
-
-    def tick(self) -> None:
-        now = time.perf_counter()
-        if self._t_last is not None:
-            self._times.append(now - self._t_last)
-            if len(self._times) > self.window:
-                self._times = self._times[-self.window:]
-        self._t_last = now
-
-    def reset(self) -> None:
-        self._times.clear()
-        self._t_last = None
-
-    def stats(self, block_on=None) -> Dict[str, float]:
-        if block_on is not None:
-            block_until_ready(block_on)
-            self.tick()
-        if not self._times:
-            return {"steps": 0}
-        times = sorted(self._times)
-        mean = sum(times) / len(times)
-        out = {
-            "steps": float(len(times)),
-            "step_ms_mean": mean * 1e3,
-            "step_ms_p50": times[len(times) // 2] * 1e3,
-            "step_ms_p99": times[min(len(times) - 1,
-                                     int(len(times) * 0.99))] * 1e3,
-        }
-        if self.batch_size:
-            out["examples_per_s"] = self.batch_size / mean
-        return out
 
 
 @contextlib.contextmanager
@@ -126,6 +80,54 @@ def trace(log_dir: str, device: DeviceLike = None):
                 torch.cuda.synchronize(dev)
 
 
+def recording() -> bool:
+    """Whether a profiler records: torch's own flag for fast checks, set
+    while any ``torch.profiler``/``torch.autograd.profiler`` profile runs
+    (a plain read, where ``torch.autograd._profiler_enabled()`` is a call
+    into C++)."""
+    return _autograd_profiler._is_profiler_enabled
+
+
+_NO_SPAN = contextlib.nullcontext()
+
+
 def annotate(name: str):
-    """Named trace span for the profiler timeline."""
-    return torch.profiler.record_function(name)
+    """A span named ``name`` on the profiler's timeline while a profiler
+    records, else one shared no-op context.
+
+    The span is a host event of function scope (``_RecordFunctionFast``),
+    as an ATen op is.  ``torch.profiler.record_function`` opens a user
+    scope instead, for which the CUDA profiler also writes a device-side
+    copy of the span over the kernels it launched: a traced slice would
+    count those as device operations and as busy time."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _NO_SPAN
+    return torch._C._profiler._RecordFunctionFast(name)
+
+
+class RecordedCount:
+    """A count the program keeps while a profiler records: ``add`` takes
+    an int, or a function that gives one when the count is read (it may
+    hold one-element views of device tensors the program made anyway, so
+    counting launches nothing and never waits for the card; a view keeps
+    its tensor's memory until then).  Reading ``value`` evaluates those,
+    waiting for the card."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._n = 0
+        self._later: List[Callable[[], int]] = []
+
+    def add(self, n: Union[int, Callable[[], int]]) -> None:
+        with self._lock:
+            if callable(n):
+                self._later.append(n)
+            else:
+                self._n += int(n)
+
+    @property
+    def value(self) -> int:
+        with self._lock:
+            self._n += sum(int(f()) for f in self._later)
+            self._later.clear()
+            return self._n

@@ -2,17 +2,14 @@
 
 The dashboard and the alert policies of both packages, fed the same
 records, give equal specs (apart from ``generated_at``) and the same
-alerts.  ``StepTimer`` keeps the JAX version's window and statistics; its
-``stats(block_on=...)`` takes the port's parameter trees and leaves CUDA
-uninitialised when no leaf is on a card.  ``trace`` writes a Chrome trace
-(``*.pt.trace.json``) holding the ``annotate`` span, and raises without a
-card unless asked for the CPU.
+alerts.  ``trace`` writes a Chrome trace (``*.pt.trace.json``) holding
+the ``annotate`` span, and raises without a card unless asked for the
+CPU.
 """
 
 import glob
 import json
 import os
-import time
 
 import pytest
 
@@ -23,8 +20,7 @@ from ncf_tpu.utils import logging as jlogging  # noqa: E402
 from ncf_tpu.utils import monitoring as jmon  # noqa: E402
 from ncf_tpu_torch.utils import logging as tlogging  # noqa: E402
 from ncf_tpu_torch.utils import monitoring as tmon  # noqa: E402
-from ncf_tpu_torch.utils.profiling import (StepTimer, annotate,  # noqa: E402
-                                           trace)
+from ncf_tpu_torch.utils.profiling import annotate, trace  # noqa: E402
 
 
 def _records():
@@ -88,36 +84,6 @@ def test_alerts_equal(n_records):
          p.kind_filter) for p in jmon.DEFAULT_POLICIES]
     if n_records:
         assert "low-hr10" in {a["policy"] for a in ta}
-
-
-class TestStepTimer:
-    def test_stats(self):
-        timer = StepTimer(batch_size=100)
-        timer.tick()
-        for _ in range(5):
-            time.sleep(0.002)
-            timer.tick()
-        s = timer.stats()
-        assert s["steps"] == 5
-        assert s["step_ms_mean"] >= 2.0
-        assert s["step_ms_p50"] >= 2.0 and s["step_ms_p99"] >= s["step_ms_p50"]
-        assert s["examples_per_s"] > 0
-        timer.reset()
-        assert timer.stats() == {"steps": 0}
-
-    def test_window_and_block_on_cpu_tree(self, monkeypatch):
-        def no_cuda(*a, **k):
-            raise AssertionError("CUDA touched for CPU tensors")
-
-        monkeypatch.setattr(torch.cuda, "synchronize", no_cuda)
-        timer = StepTimer(window=3)
-        for _ in range(6):
-            timer.tick()
-        params = {"tables": [torch.ones(2)], "dense": (torch.zeros(3),
-                                                       {"w": torch.ones(1)})}
-        s = timer.stats(block_on=params)
-        assert s["steps"] == 3          # the window, after one more tick
-        assert "examples_per_s" not in s
 
 
 def test_trace_writes_a_chrome_trace_with_the_span(tmp_path):
