@@ -30,8 +30,9 @@ Phases (each asserts; any failure exits non-zero and prints no result):
    of the chunk, int64 ids, runs of hundreds at D 200), and its
    pre-grouped entry (the sparse combine's);
    the fused tower's forward (B4f) and backward (B4b) at the three tower
-   shapes of the training steps, with dropout 0 and 0.2, and at edge
-   shapes (identical dropout zeros); the int8 streaming top-k (B6) bit for
+   shapes of the training steps and the two of the benchmark's training
+   cells, with dropout 0 and 0.2, and at edge shapes (identical dropout
+   zeros), and B4f and B4b run twice at those five shapes in equal bits; the int8 streaming top-k (B6) bit for
    bit at the serving catalog (4M items) and one that does not divide the
    block, D 64 and 61, B 1, 64 and 1024, seg_top 1 and 2, k 1, 10 and 64,
    with ties, padded-row floors and fill slots; the row gather (B7) bit
@@ -209,7 +210,8 @@ Phases (each asserts; any failure exits non-zero and prints no result):
 22. the host tools: ``build_warehouse`` at ML-1M's 6,040 users and 3,706
    items (20 stores, 60 days) on the host, each table's rows counted and
    1,000 of each held to its schema; the ``Trainer`` on that log
-   (``advanced_ncf_ml1m.yaml`` as shipped, sized to the log): one epoch
+   (``advanced_ncf_ml1m.yaml`` as shipped, sized to the log, one step a
+   dispatch): one epoch
    with B1, B2 (seven a step), B3, B4f and B4b counted, the loss falling,
    ``validate`` and a best checkpoint; 20 bare steps timed by the host
    clock up to one closing ``torch.cuda.synchronize()``, then three more
@@ -230,6 +232,11 @@ Phases (each asserts; any failure exits non-zero and prints no result):
     python3 chip_smoke.py --mesh-only   # the kernels, then phases 18-21
 
     python3 chip_smoke.py --tools-only  # the kernels, then phase 22
+
+    python3 chip_smoke.py --tower-only  # the kernels, then B4f and B4b alone
+
+(their registers and spills, tensor-core instructions, cases against the
+plain version, two runs in equal bits, times at the five tower shapes.)
 
     python3 chip_smoke.py --scatter-only  # the kernels, then B2 alone
 
@@ -340,6 +347,15 @@ CAUSAL_STEPS = 5
 # the tower's input at the training steps: (rows, width) for config A
 # joint, A independent and B independent
 TOWER_SHAPES = ((16384, 96), (81920, 96), (81920, 160))
+# the tower's input in the benchmark's training cells (ML-1M at batch
+# 524,288, the sparse bigvocab step at 262,144)
+CELL_TOWER_SHAPES = ((524288, 96), (262144, 96))
+# B4b before its redesign for 16 warps an SM (one 8-warp block an SM on
+# 64-row tiles, split-TF32 dW and dh): CUDA-event ms, NVIDIA H100 80GB HBM3,
+# 700 W
+B4B_BEFORE_MS = {"[16384, 96]": 0.3567, "[81920, 96]": 1.5546,
+                 "[81920, 160]": 1.8224, "[524288, 96]": 9.2638,
+                 "[262144, 96]": 4.6886}
 TOWER_HIDDEN = [256, 128, 64]
 
 
@@ -1147,7 +1163,10 @@ def _short_name(mangled):
     if m:
         dtype = "f32" if m.group(2) == "f" else "bf16"
         return f"{m.group(1)}<{dtype},{m.group(3)}>"
-    return "reduce_partials" if "reduce_partials" in mangled else mangled
+    for name in ("tower_bwd_kernel_wprep", "reduce_partials"):
+        if name in mangled:
+            return name
+    return mangled
 
 
 def _sass(kernels, source):
@@ -1181,10 +1200,10 @@ def _sass(kernels, source):
 
 
 def phase_sass(kernels):
-    """Every instance of B4f, B4b and B9 must hold HMMA instructions, and
-    B9's none spill to local memory."""
+    """Every instance of B4f and B4b (three tile heights each) and of B9
+    must hold HMMA instructions, and B9's none spill to local memory."""
     tower = _sass(kernels, "fused_tower")
-    towers = [k for k in tower if k.startswith("tower_")]
+    towers = [k for k in tower if k.startswith("tower_") and "<" in k]
     check(len(towers) == 6 and all(tower[k].get("hmma", 0) > 0
                                    for k in towers),
           f"B4f/B4b without tensor-core instructions: {tower}")
@@ -1309,7 +1328,8 @@ def phase_tower_kernels_vs_plain(torch):
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(31)
     errs = {"fused_tower_fwd": 0.0, "fused_tower_bwd": 0.0}
-    cases = [((rows, d0), TOWER_HIDDEN) for rows, d0 in TOWER_SHAPES]
+    cases = [((rows, d0), TOWER_HIDDEN)
+             for rows, d0 in TOWER_SHAPES + CELL_TOWER_SHAPES]
     cases += [((1, 96), TOWER_HIDDEN), ((1025, 96), TOWER_HIDDEN),
               ((4096, 5, 96), TOWER_HIDDEN), ((3000, 96), [64]),
               ((2048, 512), [512, 512, 64])]
@@ -1333,6 +1353,33 @@ def phase_tower_kernels_vs_plain(torch):
     log(f"kernel_vs_plain: fused tower {n} cases ok, max_abs_err "
         f"{json.dumps(errs)}")
     return errs
+
+
+def phase_tower_repeats(torch):
+    """B4f and B4b twice on the same inputs (dropout 0.2) at the five tower
+    shapes: equal bits, whatever order the blocks ran in."""
+    from ncf_tpu_torch.ops import tower
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(43)
+    for rows, d0 in TOWER_SHAPES + CELL_TOWER_SHAPES:
+        flat = _tower_leaves(_tower_layers(torch, d0, TOWER_HIDDEN, gen))
+        x2 = torch.randn((rows, d0), generator=gen, device=dev).to(
+            torch.bfloat16)
+        dy = torch.randn((rows, TOWER_HIDDEN[-1]), generator=gen, device=dev)
+        seed = torch.randint(0, 2 ** 31 - 1, (1,), generator=gen, device=dev,
+                             dtype=torch.int32)
+        outs = [tower._fwd_cuda(x2, seed, flat, 0.2) for _ in range(2)]
+        check(torch.equal(*outs), f"B4f [{rows}, {d0}]: two runs differ")
+        (dx1, g1), (dx2, g2) = (tower._bwd_cuda(x2, dy, seed, flat, 0.2)
+                                for _ in range(2))
+        check(torch.equal(dx1, dx2) and all(torch.equal(a, b)
+                                            for a, b in zip(g1, g2)),
+              f"B4b [{rows}, {d0}]: two runs differ")
+        del flat, x2, dy, outs, dx1, dx2, g1, g2
+    torch.cuda.empty_cache()
+    log("tower_repeats: B4f and B4b equal bit for bit over two runs at "
+        + ", ".join(f"[{r}, {d}]" for r, d in TOWER_SHAPES + CELL_TOWER_SHAPES))
 
 
 # -------------------------------------------------------------- training
@@ -2518,9 +2565,11 @@ def _time_training_kernels(torch, batch, negs, params, cfg, consts):
 
 
 def _time_tower(torch):
-    """B4f and B4b at the three tower shapes of the training steps (dropout
-    0.2): the kernel call (CUDA events and profiler device time) beside its
-    CUDA-core version's time (PR 7), its plain version, the plain layers
+    """B4f and B4b at the three tower shapes of the training steps and the
+    two of the benchmark's training cells (dropout 0.2): the kernel call
+    (CUDA events and profiler device time) beside its CUDA-core version's
+    time (at the training steps' shapes), B4b's before its redesign for 16
+    warps an SM (``B4B_BEFORE_MS``), its plain version, the plain layers
     that ``off`` runs instead (eager ``mlp_tower``, forward and forward +
     backward through autograd) and the bound.  No single PyTorch call
     computes the fused tower, so there is no library time.
@@ -2540,7 +2589,7 @@ def _time_tower(torch):
     gen = torch.Generator(device=dev).manual_seed(41)
     rate = 0.2
     rows_out = []
-    for rows, d0 in TOWER_SHAPES:
+    for rows, d0 in TOWER_SHAPES + CELL_TOWER_SHAPES:
         layers = _tower_layers(torch, d0, TOWER_HIDDEN, gen)
         flat = _tower_leaves(layers)
         x2 = torch.randn((rows, d0), generator=gen, device=dev).to(
@@ -2593,7 +2642,10 @@ def _time_tower(torch):
                   "fused_fwd_bwd_ms": cuda_ms(fused_both, 10),
                   "bound_ms": b_b, "bound_by": by_b,
                   "bound_f32_fma_ms": fma_b})):
-            pr7_ms, pr7_device_ms = EARLIER_MS[(kernel, shape)]
+            pr7_ms, pr7_device_ms = EARLIER_MS.get((kernel, shape),
+                                                   (None, None))
+            if kernel == "fused_tower_bwd":
+                extra["earlier_ms"] = B4B_BEFORE_MS[shape]
             rows_out.append({
                 "kernel": kernel, "shape": shape, "ms": cuda_ms(call, iters),
                 **_device_fields(call), "pr7_ms": pr7_ms,
@@ -5179,15 +5231,17 @@ def _tools_warehouse(root):
 
 def _tools_trainer(torch, inter, root):
     """Part 2: the ``Trainer`` on the warehouse log, config A as shipped
-    with the model sized to the log: one epoch, each step's training
-    kernels counted, ``validate``, a best checkpoint.  A train record a
-    dispatch (``log_every_steps`` 1: the logging cadence only) shows the
-    loss falling.  Returns (trainer, sized config, best checkpoint,
-    launches, summary)."""
+    with the model sized to the log and one step a dispatch: one epoch,
+    each step's training kernels counted, ``validate``, a best
+    checkpoint.  A train record a dispatch (``log_every_steps`` 1: the
+    logging cadence only) shows the loss falling.  Returns (trainer,
+    sized config, best checkpoint, launches, summary)."""
     from ncf_tpu_torch.train import Trainer
     from ncf_tpu_torch.train import checkpoint as ckpt_lib
 
-    cfg = _trainer_cfg(os.path.join(root, "ckpt"))
+    # one step a dispatch: the warehouse log's epoch is ~28 steps, and an
+    # autotuned K (timed, up to 32) can leave a single record
+    cfg = _trainer_cfg(os.path.join(root, "ckpt"), spd=1)
     cfg.model.num_users, cfg.model.num_items = inter.num_users, inter.num_items
     cfg.model.num_departments = inter.num_departments
     cfg.model.num_categories = inter.num_categories
@@ -6501,6 +6555,27 @@ def main() -> int:
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}), flush=True)
         return 0
+    if "--tower-only" in sys.argv[1:]:
+        # B4f and B4b alone: registers and spills, tensor-core
+        # instructions, the cases against the plain version, two runs in
+        # equal bits, the times at the five tower shapes
+        log("build: fused_tower " + _ptxas_report(_kernels, "fused_tower"))
+        tower_sass, _ = phase_sass(_kernels)
+        log("build: fused_tower SASS " + json.dumps(tower_sass))
+        phase_tower_kernels_vs_plain(torch)
+        phase_tower_repeats(torch)
+        rows = _time_tower(torch)
+        for r in rows:
+            log(f"timing: {r['kernel']} {r['shape']} kernel {r['ms']!r} ms "
+                f"(device {r['device_ms']!r} ms), bound {r['bound_ms']!r} ms"
+                f" ({r['bound_by']})" + (
+                    f", before the redesign {r['earlier_ms']!r} ms"
+                    if "earlier_ms" in r else ""))
+        log("tower_timing_json: " + json.dumps(rows))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
     if "--tools-only" in sys.argv[1:]:
         # phase 22 alone, with its contract lines
         tools_launches, tools_summary = phase_tools(torch, card)
@@ -6527,6 +6602,7 @@ def main() -> int:
     max_err = {"topk_scores_streaming": phase_kernel_vs_plain(torch, topk)}
     max_err.update(phase_training_kernels_vs_plain(torch))
     max_err.update(phase_tower_kernels_vs_plain(torch))
+    phase_tower_repeats(torch)
     max_err.update(phase_slice4_kernels_vs_plain(torch, topk))
     log(f"phase kernel_vs_plain {time.perf_counter() - t0:.1f} s")
 

@@ -19,8 +19,10 @@ from ncf_tpu_torch.ops.topk import (
 
 def launch_counters():
     """Every counter the program keeps, by name: each kernel wrapper's
-    launches (by kernel name), and the sparse update's rows a combine
-    touches and processes (counted while a profiler records)."""
+    launches (by kernel name), B4b's by the schedule it took
+    (``fused_tower_bwd.rows64``: tiles of 64 rows; ``rows32``,
+    ``rows16``), and the sparse update's rows a combine touches and
+    processes (counted while a profiler records)."""
     from ncf_tpu_torch.ops import (gather, sampler, scatter, temporal_sum,
                                    topk, tower)
     from ncf_tpu_torch.train.sparse import combine_duplicate_rows
@@ -37,7 +39,9 @@ def launch_counters():
             "topk_scores_pallas": topk.topk_scores_pallas.launches,
             "topk_scores_segmented": topk.topk_scores_segmented.launches,
             "sparse_rows_touched": combine_duplicate_rows.rows_touched,
-            "sparse_rows_processed": combine_duplicate_rows.rows_processed}
+            "sparse_rows_processed": combine_duplicate_rows.rows_processed,
+            **{f"fused_tower_bwd.{k}": c
+               for k, c in tower.fused_tower.bwd_schedules.items()}}
 
 
 __all__ = [

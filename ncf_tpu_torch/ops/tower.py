@@ -31,9 +31,10 @@ training step sums them over the ranks with the other dense gradients.
 raises) and runs the plain version for CPU tensors; ``fused_tower_ref``
 always runs the plain version, on any device.  The kernels run their
 products on the tensor cores: the forward's bf16 products exactly, the
-backward's f32 products as split TF32 (within a few 2^-22 of each
-product), so they agree with the plain version up to the order and
-rounding of f32 sums.  They read the parameters where they lie (f32,
+backward's f32 products f32-faithfully (dW with dz in three bf16 pieces,
+within 2^-24 of each product; dh in split TF32, within 3 * 2^-22), so
+they agree with the plain version up to the order and rounding of f32
+sums.  They read the parameters where they lie (f32,
 contiguous: no packed copy) and sum the weight gradients in a fixed
 order.  ``tower_fits`` is a copy
 of the reference's routing rule, kept so that both packages route the
@@ -58,7 +59,12 @@ MAX_WIDTH = 512
 
 # (library, C function, argument codes of ``_kernels.bind``)
 C_FWD = ("fused_tower", "ncf_tower_fwd", "pppiipilfpp")
-C_BWD = ("fused_tower", "ncf_tower_bwd", "ppppiipilfipppp")
+C_BWD = ("fused_tower", "ncf_tower_bwd", "ppppiipilfiplppp")
+C_BWD_PLAN = ("fused_tower", "ncf_tower_bwd_plan", "ppiiip")
+# B4b's schedules by the tile's rows (64 rows and 16 warps a block, 32 or
+# 16 and 8), as ``csrc/fused_tower.cu::choose_bwd_layout`` takes them by
+# shape
+BWD_SCHEDULES = ("rows64", "rows32", "rows16")
 
 
 def _round_up(x: int, m: int) -> int:
@@ -254,6 +260,26 @@ def _fwd_cuda(x2, seed, flat, rate):
     return out
 
 
+# (device index, dims, rows, dropout) -> B4b's plan: the tile's rows, its
+# blocks a multiprocessor, the blocks a launch takes, the scratch floats
+_BWD_PLANS: dict = {}
+
+
+def _bwd_plan(x2, dims, ptrs, cdims, use):
+    """B4b's schedule for this shape (``ncf_tower_bwd_plan``), asked once
+    a shape and device."""
+    key = (x2.device.index, tuple(dims), x2.shape[0], use)
+    plan = _BWD_PLANS.get(key)
+    if plan is None:
+        out = (ctypes.c_longlong * 4)()
+        with _kernels.on_device(x2.device):
+            _kernels.launch(*C_BWD_PLAN, ctypes.addressof(ptrs),
+                            ctypes.addressof(cdims), len(dims) - 1,
+                            x2.shape[0], use, ctypes.addressof(out))
+        plan = _BWD_PLANS[key] = tuple(out)
+    return plan
+
+
 def _bwd_cuda(x2, dy, seed, flat, rate):
     dims = _dims(x2, flat)
     _check_cuda(x2, flat, dims)
@@ -262,23 +288,25 @@ def _bwd_cuda(x2, dy, seed, flat, rate):
     leaves, ptrs = _leaves(flat)
     rows = x2.shape[0]
     n_params = sum(p.numel() for p in leaves)
-    # one f32 slice of the parameter gradients per resident block: the
-    # kernel keeps at most one block a multiprocessor, tiles of >= 16 rows
-    sms = torch.cuda.get_device_properties(x2.device).multi_processor_count
-    max_blocks = max(1, min(-(-rows // 16), sms))
-    scratch = torch.empty(max_blocks * n_params, dtype=torch.float32,
-                          device=x2.device)
-    grads = torch.empty(n_params, dtype=torch.float32, device=x2.device)
-    dx = torch.empty((rows, dims[0]), dtype=torch.bfloat16, device=x2.device)
     use, thr, inv = _keep_args(rate)
     cdims = _c_dims(dims)
+    # the weight fragments, then one f32 slice of the parameter gradients
+    # for each block the launch takes
+    tile, _, blocks, n_scratch = _bwd_plan(x2, dims, ptrs, cdims, use)
+    scratch = torch.empty(n_scratch, dtype=torch.float32, device=x2.device)
+    grads = torch.empty(n_params, dtype=torch.float32, device=x2.device)
+    dx = torch.empty((rows, dims[0]), dtype=torch.bfloat16, device=x2.device)
     with _kernels.on_device(x2.device):
         _kernels.launch(*C_BWD, x2.data_ptr(), dy.data_ptr(),
                         ctypes.addressof(ptrs), ctypes.addressof(cdims),
                         len(dims) - 1, rows, seed.data_ptr(), use, thr, inv,
-                        max_blocks, scratch.data_ptr(), grads.data_ptr(),
-                        dx.data_ptr(), _kernels.stream_of(x2))
+                        blocks, scratch.data_ptr(), n_scratch,
+                        grads.data_ptr(), dx.data_ptr(),
+                        _kernels.stream_of(x2))
     fused_tower.bwd_launches.add()
+    taken = fused_tower.bwd_schedules.get(f"rows{tile}")
+    if taken is not None:
+        taken.add()
     out, off = [], 0
     for p in flat:
         out.append(grads[off:off + p.numel()].view(p.shape))
@@ -341,6 +369,8 @@ def fused_tower(layers: List[dict], x: torch.Tensor, dropout_rate: float = 0.0,
 
 fused_tower.fwd_launches = _kernels.LaunchCounter()
 fused_tower.bwd_launches = _kernels.LaunchCounter()
+fused_tower.bwd_schedules = {k: _kernels.LaunchCounter()
+                             for k in BWD_SCHEDULES}
 
 
 def fused_tower_ref(layers: List[dict], x: torch.Tensor,

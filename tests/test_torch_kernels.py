@@ -972,7 +972,7 @@ def test_bindings_match_the_c_prototypes(mod):
     assert _prototypes()[(lib, fn)] == codes
 
 
-@pytest.mark.parametrize("entry", (tower.C_FWD, tower.C_BWD,
+@pytest.mark.parametrize("entry", (tower.C_FWD, tower.C_BWD, tower.C_BWD_PLAN,
                                    topk.INT8_ENTRY, topk.EXACT_ENTRY,
                                    topk.SEGMAX_ENTRY, gather.C_ENTRY))
 def test_tower_bindings_match_the_c_prototypes(entry):
@@ -1029,6 +1029,6 @@ def test_wrappers_pass_what_the_bindings_declare(monkeypatch):
     gather._gather_cuda(torch.zeros(50, 8), torch.zeros(7, dtype=torch.long))
     assert calls == ["ncf_tree_sample", "ncf_scatter_add",
                      "ncf_temporal_sum", "ncf_topk_streaming",
-                     "ncf_tower_fwd", "ncf_tower_bwd",
+                     "ncf_tower_fwd", "ncf_tower_bwd_plan", "ncf_tower_bwd",
                      "ncf_topk_streaming_int8", "ncf_topk_exact",
                      "ncf_topk_segmax", "ncf_gather"]

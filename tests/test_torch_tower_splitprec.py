@@ -1,25 +1,30 @@
 """The arithmetic of B4b's tensor-core products, emulated on the CPU.
 
 ``csrc/fused_tower.cu`` keeps the backward's products f32-faithful on
-TF32 tensor cores (``mma.sync.m16n8k8``):
+the tensor cores (``mma.sync``):
 
-- dW = h^T dz: h is bf16, exact in TF32; dz = hi + lo with hi =
-  tf32_rna(dz) and lo = tf32_rna(dz - hi), and the kernel issues h.lo,
-  then h.hi.  |dz - hi - lo| <= 2^-22 |dz|, so each product is within
-  2^-22 of its value.
-- dh = dz W^T with the f32 weight: both sides split, lo.hi + hi.lo +
-  hi.hi; the dropped lo.lo and the two splits leave at most 3 * 2^-22 of
-  |dz w| a product.
+- dW = h^T dz, bf16 ``m16n8k16``: h is bf16, exact; dz = p1 + p2 + p3,
+  three bf16 pieces, each rounding to nearest (ties to even) what the
+  pieces before it left, and the kernel issues h.p3, h.p2, then h.p1.
+  |dz - p1 - p2 - p3| <= 2^-24 |dz|, so each product is within 2^-24 of
+  its value.
+- dh = dz W^T with the f32 weight, TF32 ``m16n8k8``: both sides split
+  (hi = tf32_rna(x), lo = tf32_rna(x - hi)), lo.hi + hi.lo + hi.hi; the
+  dropped lo.lo and the two splits leave at most 3 * 2^-22 of |dz w| a
+  product.  Each 16 columns of the depth feed two instructions: the
+  first takes columns 4 q and 4 q + 1 of q = 0..3, the second 4 q + 2
+  and 4 q + 3.
 
-Each instruction adds its exact 8-deep sum to the f32 accumulator.  dW
-sums a tile of 64 rows, then adds the tile into its block's f32 slice;
-the slices are added in block order.  The emulation below repeats that
-(rounding to nearest with ties away at 10 mantissa bits, as
-``cvt.rna.tf32.f32``).
+Each instruction adds its exact sum (16 deep for dW, 8 for dh) to the
+f32 accumulator.  dW sums a tile of 64 rows, then adds the tile into its
+block's f32 slice (one block a multiprocessor); the slices are added in
+block order.  The emulation below repeats that (TF32: rounding to
+nearest with ties away at 10 mantissa bits, as ``cvt.rna.tf32.f32``).
 
 Held here, at the tower's shapes cut to a few hundred rows (seeded numpy
-inputs): each product within its stated error of an f64 reference (with
-exact sums, so only the products' error shows); the backward with these
+inputs): the three bf16 pieces within 2^-24 of each value; each product
+within its stated error of an f64 reference (with exact sums, so only
+the products' error shows); the backward with these
 products within the card tests' gradient tolerance of ``_bwd_ref`` (each
 leaf within 1e-4 of its largest magnitude, plus 1e-6; dx within one bf16
 ulp plus 1e-4 of its largest magnitude); and one TF32 or one bf16 product
@@ -38,8 +43,9 @@ from ncf_tpu_torch.ops import tower  # noqa: E402
 F32, F64 = np.float32, np.float64
 TILE = 64          # rows a tile of B4b, one dW update each
 BLOCKS = 132       # resident blocks (one a multiprocessor of an H100)
-KSTEP = 8          # depth of one m16n8k8 instruction
-DW_ERR = 2.0 ** -22
+DW_STEP = 16       # depth of one bf16 m16n8k16 instruction (dW)
+DH_STEP = 8        # depth of one TF32 m16n8k8 instruction (dh)
+DW_ERR = 2.0 ** -24
 DH_ERR = 3 * 2.0 ** -22
 
 
@@ -61,30 +67,59 @@ def _split(x):
     return hi, _tf32((x.astype(F32) - hi).astype(F32))
 
 
-def _operands(route, a, b):
+def _pieces(x):
+    """x as three bf16 pieces p1 + p2 + p3, each rounding (to nearest
+    even) what the pieces before it left; the remainders are exact in
+    f32."""
+    x = np.asarray(x, F32)
+    p1 = _bf16(x)
+    r = (x - p1).astype(F32)
+    p2 = _bf16(r)
+    return p1, p2, _bf16((r - p2).astype(F32))
+
+
+def _operands(route, a, b, kind):
     """Pairs (left [M, K], right [K, N]) of a product a @ b in the order
     the kernel issues them.  route: "split" (the kernel's: for dW, a is
-    bf16 h^T and only b = dz splits; for dh both split), "tf32" or "bf16"
-    (one product of rounded operands: what the kernel does NOT do)."""
+    bf16 h^T and b = dz splits in three bf16 pieces; for dh both sides
+    split in TF32), "tf32" or "bf16" (one product of rounded operands:
+    what the kernel does NOT do)."""
     if route == "tf32":
         return [(_tf32(a), _tf32(b))]
     if route == "bf16":
         return [(_bf16(a), _bf16(b))]
+    if kind == "dw":
+        p1, p2, p3 = _pieces(b)
+        return [(a, p3), (a, p2), (a, p1)]
     bh, bl = _split(b)
-    if np.array_equal(_bf16(a), a):          # h: exact in TF32
-        return [(a, bl), (a, bh)]
     ah, al = _split(a)
     return [(al, bh), (ah, bl), (ah, bh)]
 
 
-def _mma(pairs, exact=False):
-    """sum over K of left @ right, KSTEP deep at a time, each instruction's
-    exact sum added to the f32 accumulator (or, with ``exact``, to an f64
-    one: only the products' error remains)."""
+def _dh_depth_order(n):
+    """B4b's dh instructions in order over a depth of n columns (padded
+    with zeros to a multiple of 16): per 16 columns, the first takes 4 q
+    and 4 q + 1 of q = 0..3, the second 4 q + 2 and 4 q + 3."""
+    out = []
+    for b in range(0, -(-n // 16) * 16, 16):
+        out += [b + 4 * q + e for q in range(4) for e in (0, 1)]
+        out += [b + 4 * q + 2 + e for q in range(4) for e in (0, 1)]
+    return np.asarray(out)
+
+
+def _mma(pairs, exact=False, kind="dw"):
+    """sum over K of left @ right, an instruction at a time (16 deep for
+    dW; for dh 8 deep in ``_dh_depth_order``), each instruction's exact
+    sum added to the f32 accumulator (or, with ``exact``, to an f64 one:
+    only the products' error remains)."""
     m, k = pairs[0][0].shape
+    step = DW_STEP if kind == "dw" else DH_STEP
+    kp = -(-k // 16) * 16
+    order = np.arange(kp) if kind == "dw" else _dh_depth_order(k)
     acc = np.zeros((m, pairs[0][1].shape[1]), F64)
-    for k0 in range(0, k, KSTEP):
-        sl = slice(k0, k0 + KSTEP)
+    for k0 in range(0, kp, step):
+        sl = order[k0:k0 + step]
+        sl = sl[sl < k]
         for a, b in pairs:
             acc = acc + a[:, sl].astype(F64) @ b[sl].astype(F64)
             if not exact:
@@ -100,7 +135,8 @@ def _dw(h, dz, route):
     slices = {}
     for t in range(tiles):
         rows = slice(t * TILE, (t + 1) * TILE)
-        part = _mma(_operands(route, h[rows].T.copy(), dz[rows])).astype(F32)
+        part = _mma(_operands(route, h[rows].T.copy(), dz[rows], "dw"),
+                    kind="dw").astype(F32)
         b = t % BLOCKS
         slices[b] = part if b not in slices else (slices[b] + part).astype(F32)
     out = np.zeros_like(slices[0])
@@ -111,7 +147,8 @@ def _dw(h, dz, route):
 
 def _dh(dz, w, route):
     """dh = dz @ W^T with the f32 weight, as B4b forms it."""
-    return _mma(_operands(route, dz, w.T.copy())).astype(F32)
+    return _mma(_operands(route, dz, w.T.copy(), "dh"),
+                kind="dh").astype(F32)
 
 
 def _bwd_emulated(x2, dy, seed, flat, rate, route):
@@ -195,11 +232,44 @@ def test_each_product_is_within_its_stated_error(shape, rate):
     """With exact sums, dW and dh differ from f64 by at most the stated
     error of each product times the sum of the products' magnitudes."""
     for h, dz, w in _layer_operands(*shape, rate):
-        for a, b, err in ((h.T.copy(), dz, DW_ERR), (dz, w.T.copy(), DH_ERR)):
-            got = _mma(_operands("split", a, b), exact=True)
+        for a, b, err, kind in ((h.T.copy(), dz, DW_ERR, "dw"),
+                                (dz, w.T.copy(), DH_ERR, "dh")):
+            got = _mma(_operands("split", a, b, kind), exact=True, kind=kind)
             want = a.astype(F64) @ b.astype(F64)
             mag = np.abs(a.astype(F64)) @ np.abs(b.astype(F64))
             assert np.all(np.abs(got - want) <= err * mag)
+
+
+def test_three_bf16_pieces_are_within_2_to_the_minus_24():
+    """dW's split of dz: p1 + p2 + p3 within 2^-24 of each value (over
+    sixty binades, with zeros and signs), where two pieces leave more
+    than the old TF32 pair's 2^-22."""
+    rng = np.random.default_rng(11)
+    x = (rng.standard_normal(200_000) * 2.0 ** rng.integers(
+        -30, 30, 200_000)).astype(F32)
+    x[:100] = 0.0
+    p1, p2, p3 = _pieces(x)
+    err = np.abs(x.astype(F64) - p1 - p2.astype(F64) - p3)
+    assert np.all(err <= 2.0 ** -24 * np.abs(x.astype(F64)))
+    two = np.abs(x.astype(F64) - p1 - p2.astype(F64))
+    assert np.max(two / np.maximum(np.abs(x.astype(F64)), 1e-300)) > 2.0 ** -22
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("rate", (0.0, 0.2))
+def test_dw_route_is_within_its_stated_error_with_f32_sums(shape, rate):
+    """dW as the kernel forms it (64-row tiles, 16-deep instructions, the
+    slices in block order) is within its stated 2^-24 a product plus the
+    f32 sums' rounding of the f64 product: the f32 rounding of each
+    instruction's add, 2^-24 of the running magnitude, counted over the
+    adds of the tile, of the slice and of the slices' sum."""
+    for h, dz, _ in _layer_operands(*shape, rate):
+        got = _dw(h, dz, "split").astype(F64)
+        want = h.T.astype(F64) @ dz.astype(F64)
+        mag = np.abs(h.T.astype(F64)) @ np.abs(dz.astype(F64))
+        adds = 3 * -(-TILE // DW_STEP) + 2 * -(-h.shape[0] // TILE)
+        assert np.all(np.abs(got - want) <= (DW_ERR + adds * 2.0 ** -24)
+                      * mag + 1e-30)
 
 
 @pytest.mark.parametrize("shape", SHAPES)
