@@ -1,0 +1,27 @@
+"""``hstu_attn_bwd_roofline``: HSTU's attention backward
+(``ops/hstu_attention.py``, ``hstu_attention.cu``), its share of its
+roofline in a training step: one launch a block, its work counted from
+the traced batches' lengths (``counts/hstu.py::attn_bwd``) at the bf16
+peak."""
+
+from __future__ import annotations
+
+from benchmark import counts
+from benchmark.counts import hstu
+from benchmark.metrics.readers import roofline
+
+KERNELS = ("hstu_attn_bwd_dkdv_kernel", "hstu_attn_bwd_dq_kernel",
+           "hstu_bias_reduce_kernel")
+LAUNCH_COUNTER = "hstu_attn_bwd"
+
+
+def bound_s(sh: counts.Shapes) -> float:
+    return sh["blocks"] * counts.bound_s(*hstu.attn_bwd(sh), "bfloat16")
+
+
+def read(slc, ctx):
+    sh = ctx["shapes"]
+    if not sh.get("pairs"):
+        return None
+    return roofline(slc, ctx, KERNELS, bound_s(sh), LAUNCH_COUNTER,
+                    sh["blocks"])

@@ -238,6 +238,17 @@ Phases (each asserts; any failure exits non-zero and prints no result):
 (their registers and spills, tensor-core instructions, cases against the
 plain version, two runs in equal bits, times at the five tower shapes.)
 
+    python3 chip_smoke.py --hstu-only  # the kernels, then phase H alone
+
+(HSTU's attention, H1, at the HSTU cell's shapes: a packed batch of
+262,144 target positions with histories of 512-8,192 against the plain
+version, forward and every gradient, two backward runs in equal bits,
+its times beside the plain version's and the bound; three steps of
+``ncf_tpu_torch/configs/hstu_large_retail4m.yaml`` at 4M items on the
+main path with H1's launches counted, 8 forwards and 8 backwards a
+step; that configuration through ``cli train`` at 2,000 users.  The
+default run takes phase H after phase 17.)
+
     python3 chip_smoke.py --scatter-only  # the kernels, then B2 alone
 
 (B2's cases against the plain version, its times at the step's seven
@@ -338,6 +349,9 @@ KERNELS = {
                            "ncf_tpu/ops/topk.py:161"),
     "topk_scores_segmented": ("ncf_tpu_torch/ops/csrc/topk_segmax.cu",
                               "ncf_tpu/ops/topk.py:993"),
+    # H1: HSTU is the port's alone, so no Pallas kernel is replaced
+    "hstu_attn_fwd": ("ncf_tpu_torch/ops/csrc/hstu_attention.cu", None),
+    "hstu_attn_bwd": ("ncf_tpu_torch/ops/csrc/hstu_attention.cu", None),
 }
 ML1M = os.path.join(ROOT, "configs", "advanced_ncf_ml1m.yaml")
 QUALITY = os.path.join(ROOT, "configs", "advanced_ncf_quality.yaml")
@@ -5015,6 +5029,303 @@ def _memo_load(cli):
     return cli._load_interactions
 
 
+# ------------------------------------------------- phase H: HSTU's H1
+
+# H1 at the HSTU cell's shapes (benchmark/traffic/train-hstu-t262144.json,
+# ncf_tpu_torch/configs/hstu_large_retail4m.yaml): packed batches of
+# 262,144 target positions, history lengths log-uniform over 512-8,192,
+# 2 heads of 25, N 8,192
+HSTU_CONFIG = os.path.join(ROOT, "ncf_tpu_torch", "configs",
+                           "hstu_large_retail4m.yaml")
+HSTU_TARGETS = 262144
+HSTU_LENS = (512, 8192)
+HSTU_STEPS = 3
+# tests/test_torch_hstu.py's tolerances, by norm of the difference over
+# the plain version's: the output 2e-4 (bf16 operands on both sides, f32
+# sums in another order), each gradient 1e-2 (A and dA rounded to bf16
+# where the plain version's autograd keeps f32)
+HSTU_OUT_TOL, HSTU_GRAD_TOL = 2e-4, 1e-2
+
+
+def _hstu_batch(np, n_targets, rng):
+    """(offsets int64 [S + 1], timestamps int64 [T]) of a packed batch of
+    ``n_targets`` target positions: lengths log-uniform over
+    ``HSTU_LENS``, the last cut to the budget; baskets that share a
+    timestamp, gaps log-uniform over 1 hour to 60 days."""
+    lo, hi = HSTU_LENS
+    lens, left = [], n_targets
+    while left > 0:
+        L = min(int(np.exp(rng.uniform(np.log(lo), np.log(hi + 1)))),
+                hi, left + 1)
+        lens.append(L)
+        left -= L - 1
+    off = np.concatenate([[0], np.cumsum(lens)]).astype(np.int64)
+    T = int(off[-1])
+    gaps = np.exp(rng.uniform(np.log(3600), np.log(5_184_000), T))
+    gaps = np.where(rng.random(T) < 0.4, gaps, 0.0).astype(np.int64)
+    return off, np.cumsum(gaps) + 1_500_000_000
+
+
+def _hstu_rel(a, b):
+    return float((a - b).norm() / b.norm().clamp(min=1e-30))
+
+
+def _hstu_bounds(off, H, D, N):
+    """(forward, backward) bound ms of one launch: the useful causal
+    pairs' products at the bf16 peak, or Q, K, V (and dO) read and the
+    outputs written once in bf16, the offsets, timestamps and bias tables
+    (``benchmark/counts/hstu.py``'s counts), whichever is longer."""
+    import numpy as np
+
+    lens = np.diff(off)
+    T, S = int(off[-1]), lens.size
+    pairs = float((lens * (lens + 1) // 2).sum())
+    tables = (2 * N - 1 + 129) * 4
+    pos = (S + 1 + T) * 8
+    fwd = _bound(T * H * 4 * D * 2 + pos + tables,
+                 pairs * H * 2.0 * 2 * D, PEAK_FLOP_S["bfloat16"])
+    bwd = _bound(T * H * 7 * D * 2 + pos + 2 * tables,
+                 pairs * H * 2.0 * 5 * D, PEAK_FLOP_S["bfloat16"])
+    return fwd, bwd
+
+
+def _hstu_plain(torch, hsa, uvqk, w_pos, w_ts, ts, off, N, go, H, D):
+    """The plain version's output and gradients of (uvqk, w_pos, w_ts),
+    one sequence at a time, each sequence's graph freed before the
+    next (the whole batch's would not fit the card)."""
+    out = torch.empty((uvqk.shape[0], H, D), device=uvqk.device)
+    grads = [torch.zeros_like(x) for x in (uvqk, w_pos, w_ts)]
+    for a, b in zip(off[:-1].tolist(), off[1:].tolist()):
+        x = uvqk[a:b].detach().requires_grad_(True)
+        wp = w_pos.detach().requires_grad_(True)
+        wt = w_ts.detach().requires_grad_(True)
+        v, q, k = (x[:, c * H * D:(c + 1) * H * D].reshape(b - a, H, D)
+                   for c in (1, 2, 3))
+        with torch.enable_grad():
+            o = hsa.hstu_attention_ref(q, k, v, wp, wt, ts[a:b], [0, b - a],
+                                       N)
+            gx, gp, gt = torch.autograd.grad(o, (x, wp, wt), go[a:b])
+        out[a:b] = o.detach()
+        grads[0][a:b] = gx
+        grads[1] += gp
+        grads[2] += gt
+    return out, grads
+
+
+def _hstu_compare(torch, hsa, off, ts, N, H, D, seed):
+    """H1 against its plain version on one packed batch, forward and
+    every gradient; two backward runs in equal bits; each call one
+    launch of each.  Returns the timing row's fields."""
+    import numpy as np
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    T = int(off[-1])
+    # q, k, v as the model passes them: column views of one wider row
+    uvqk = torch.randn((T, 4 * H * D), generator=g, device=dev)
+    w_pos = torch.randn(2 * N - 1, generator=g, device=dev) * 0.5
+    w_ts = torch.randn(129, generator=g, device=dev) * 0.5
+    go = torch.randn((T, H, D), generator=g, device=dev)
+    ts = torch.from_numpy(ts).to(dev)
+    leaves = [x.requires_grad_(True) for x in (uvqk, w_pos, w_ts)]
+    v, q, k = (uvqk[:, c * H * D:(c + 1) * H * D].reshape(T, H, D)
+               for c in (1, 2, 3))
+    plan = hsa.Plan(off, dev)
+    fwd_c = hsa.hstu_attention.fwd_launches
+    bwd_c = hsa.hstu_attention.bwd_launches
+    fwd_c.reset()
+    bwd_c.reset()
+    out = hsa.hstu_attention(q, k, v, w_pos, w_ts, ts, plan, N)
+    got = torch.autograd.grad(out, leaves, go)
+    check((fwd_c.value, bwd_c.value) == (1, 1),
+          f"H1: a call launched {fwd_c.value} forwards and {bwd_c.value} "
+          "backwards, not one each")
+    again = torch.autograd.grad(
+        hsa.hstu_attention(q, k, v, w_pos, w_ts, ts, plan, N), leaves, go)
+    for name, a, b in zip(("uvqk", "w_pos", "w_ts"), got, again):
+        check(torch.equal(a, b), f"H1: two backward runs differ in d{name}")
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    want_out, want = _hstu_plain(torch, hsa, uvqk, w_pos, w_ts, ts, off, N,
+                                 go, H, D)
+    stop.record()
+    torch.cuda.synchronize()
+    plain_fb_ms = start.elapsed_time(stop)
+    out = out.detach()
+    gaps = {"out": _hstu_rel(out, want_out)}
+    gaps.update({f"d{n}": _hstu_rel(a, b)
+                 for n, a, b in zip(("uvqk", "w_pos", "w_ts"), got, want)})
+    max_abs = float((out - want_out).abs().max())
+    del want_out, want, got, again
+    check(gaps["out"] <= HSTU_OUT_TOL,
+          f"H1: output {gaps['out']!r} from the plain version's "
+          f"(tolerance {HSTU_OUT_TOL})")
+    for n in ("duvqk", "dw_pos", "dw_ts"):
+        check(gaps[n] <= HSTU_GRAD_TOL,
+              f"H1: {n} {gaps[n]!r} from the plain version's (tolerance "
+              f"{HSTU_GRAD_TOL})")
+
+    with torch.no_grad():
+        qd, kd, vd, wp, wt = (x.detach() for x in (q, k, v, w_pos, w_ts))
+
+        def fwd():
+            return hsa._forward_cuda(qd, kd, vd, wp, wt, ts, plan, N)
+
+        _, ops = fwd()
+
+        def bwd():
+            return hsa._backward_cuda(ops, go, wp, wt, ts, plan, N)
+
+        def plain_fwd():
+            return hsa.hstu_attention_ref(qd, kd, vd, wp, wt, ts, off, N)
+
+        fwd_ms, bwd_ms = cuda_ms(fwd, 10), cuda_ms(bwd, 10)
+        plain_fwd_ms = cuda_ms(plain_fwd, 1, warmup=1)
+        fwd_dev, bwd_dev = _device_fields(fwd), _device_fields(bwd)
+    (fb, fby), (bb, bby) = _hstu_bounds(off, H, D, N)
+    lens = np.diff(off)
+    shape = (f"T {int(off[-1])}, {lens.size} histories of {int(lens.min())}"
+             f"-{int(lens.max())}, H {H}, D {D}, N {N}")
+    rows = [
+        {"kernel": "hstu_attn_fwd", "shape": shape, "ms": fwd_ms, **fwd_dev,
+         "plain_ms": plain_fwd_ms, "bound_ms": fb, "bound_by": fby,
+         "library_ms": None},
+        {"kernel": "hstu_attn_bwd", "shape": shape, "ms": bwd_ms, **bwd_dev,
+         "plain_ms": plain_fb_ms - plain_fwd_ms, "bound_ms": bb,
+         "bound_by": bby, "library_ms": None}]
+    return rows, gaps, max_abs
+
+
+def _hstu_steps(torch, batches, N):
+    """``HSTU_STEPS`` steps of the shipped configuration at 4M items on
+    the main path (``make_sparse_train_step``, as the Trainer builds it),
+    the launch counters reset just before: (H1's launches, the steps'
+    losses, CUDA-event ms a step, peak GiB)."""
+    import dataclasses
+
+    from ncf_tpu_torch.models import get_model
+    from ncf_tpu_torch.ops import embedding
+    from ncf_tpu_torch.ops.hstu_attention import hstu_attention
+    from ncf_tpu_torch.train import (init_sparse_opt_state, make_optimizer,
+                                     make_schedule, make_sparse_train_step)
+    from ncf_tpu_torch.train.trainer import _SCATTER
+    from ncf_tpu_torch.utils.config import Config
+
+    dev = torch.device("cuda")
+    cfg = Config.from_yaml(HSTU_CONFIG)
+    cfg.model.num_items = cfg.data.synthetic_items
+    cfg.validate()
+    check(cfg.model.max_sequence_length == N, "H1: the config's N")
+    model = get_model(cfg.model.name)
+    embedding.set_scatter_impl(*_SCATTER[cfg.train.embedding_scatter])
+    params = model.init(torch.Generator(device=dev).manual_seed(0),
+                        cfg.model, device=dev)
+    opt = make_optimizer(dataclasses.replace(cfg.train,
+                                             gradient_clip_norm=0.0),
+                         HSTU_STEPS)
+    state = init_sparse_opt_state(opt, params)
+    step = make_sparse_train_step(model, cfg, opt,
+                                  make_schedule(cfg.train, HSTU_STEPS),
+                                  device=dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    counters = (hstu_attention.fwd_launches, hstu_attention.bwd_launches)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters:
+        c.reset()
+    losses = []
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for b in batches:
+        params, state, gen, met = step(params, state, gen, b)
+        losses.append(met["loss"])
+    stop.record()
+    torch.cuda.synchronize()
+    launches = [c.value for c in counters]
+    losses = [float(x) for x in losses]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del params, state, step
+    torch.cuda.empty_cache()
+    return launches, losses, start.elapsed_time(stop) / len(batches), peak
+
+
+def phase_hstu(torch):
+    """Phase H: HSTU's attention (H1) at the cell's shapes.  H1 against
+    its plain version on a packed batch of 262,144 target positions,
+    forward and every gradient at the tolerances of its tests, two
+    backward runs in equal bits; its times beside the plain version's
+    and the bound; then ``HSTU_STEPS`` steps of the shipped
+    configuration at 4M items on the main path with H1's launches
+    counted (8 forwards and 8 backwards a step, one a block), and the
+    shipped configuration through ``cli train`` at 2,000 users (the
+    Trainer, evaluation off).  Returns (H1's launches on the main path,
+    its timing rows, worst absolute output error, summary)."""
+    import shutil
+
+    import numpy as np
+
+    from ncf_tpu_torch.ops import embedding
+    from ncf_tpu_torch.ops import hstu_attention as hsa
+    from ncf_tpu_torch.utils.config import Config
+
+    # the steps and the CLI's Trainer set the scatter's rounding
+    # process-wide: the later phases get theirs back
+    before = (embedding._SCATTER_IMPL, embedding._SCATTER_MODE)
+    cfg = Config.from_yaml(HSTU_CONFIG)
+    N, H = cfg.model.max_sequence_length, cfg.model.num_heads
+    D = cfg.model.attention_dim
+    check(D == cfg.model.linear_dim, "H1: d_qk and d_v differ")
+    rng = np.random.default_rng(2026)
+    off, ts = _hstu_batch(np, HSTU_TARGETS, rng)
+    t0 = time.perf_counter()
+    rows, gaps, max_abs = _hstu_compare(torch, hsa, off, ts, N, H, D, 17)
+    compare_s = time.perf_counter() - t0
+    for r in rows:
+        log(f"timing: {r['kernel']} {r['shape']} kernel {r['ms']!r} ms "
+            f"(device {r['device_ms']!r} ms, {r['device_ops']}), plain "
+            f"{r['plain_ms']!r} ms, bound {r['bound_ms']!r} ms "
+            f"({r['bound_by']})")
+    log("hstu_compare_json: " + json.dumps(
+        {"gaps": gaps, "tolerances": [HSTU_OUT_TOL, HSTU_GRAD_TOL],
+         "max_abs_err": max_abs, "seconds": compare_s}))
+    torch.cuda.empty_cache()
+
+    batches = []
+    for _ in range(HSTU_STEPS):
+        o, t = _hstu_batch(np, HSTU_TARGETS, rng)
+        batches.append({"item_ids": rng.integers(0, cfg.data.synthetic_items,
+                                                 int(o[-1])),
+                        "timestamps": t, "offsets": o})
+    launches, losses, step_ms, peak = _hstu_steps(torch, batches, N)
+    per_step = cfg.model.num_blocks * HSTU_STEPS
+    check(launches == [per_step, per_step],
+          f"H1: {launches} forward and backward launches over "
+          f"{HSTU_STEPS} steps, not {per_step} each")
+    check(all(np.isfinite(losses)), f"H1: losses {losses}")
+
+    d = os.path.join(SMOKE_DIR, "hstu_cli")
+    shutil.rmtree(d, ignore_errors=True)
+    t0 = time.perf_counter()
+    rc, out = _cli(["train", "--config", HSTU_CONFIG, "--log-level",
+                    "WARNING", "data.synthetic_users=2000",
+                    "train.batch_size=65536", f"train.checkpoint_dir={d}",
+                    "train.metrics_file="])
+    cli_s = time.perf_counter() - t0
+    check(rc == 0, f"hstu cli: train exited {rc}")
+    check(os.listdir(d), "hstu cli: no checkpoint written")
+    shutil.rmtree(d, ignore_errors=True)
+    embedding.set_scatter_impl(*before)
+    summary = {"main_path_launches": dict(zip(
+                   ("hstu_attn_fwd", "hstu_attn_bwd"), launches)),
+               "steps": HSTU_STEPS, "losses": losses, "step_ms": step_ms,
+               "peak_gib": peak, "cli_s": cli_s,
+               "cli_out": out.strip().splitlines()[-1:]}
+    return dict(zip(("hstu_attn_fwd", "hstu_attn_bwd"), launches)), rows, \
+        max_abs, summary
+
+
 def phase_bigvocab_trainer(torch, card):
     """Phase 17: ``python -m ncf_tpu_torch.cli train`` on the bigvocab
     config at a precompute-off size small enough for the default run
@@ -6460,6 +6771,16 @@ def run_mesh_phases(torch, card):
     return launches
 
 
+def _kernel_entry(name, launches, max_abs_err, r):
+    """A kernel's entry of the ``kernels`` line (``r``: its timing row)."""
+    source, replaces = KERNELS[name]
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": max_abs_err, "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
+
+
 def main() -> int:
     import torch
 
@@ -6572,6 +6893,21 @@ def main() -> int:
                     f", before the redesign {r['earlier_ms']!r} ms"
                     if "earlier_ms" in r else ""))
         log("tower_timing_json: " + json.dumps(rows))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
+    if "--hstu-only" in sys.argv[1:]:
+        # H1 alone: phase H, and the kernels line of its two rows
+        log("build: hstu_attention " + _ptxas_report(_kernels,
+                                                     "hstu_attention"))
+        t0 = time.perf_counter()
+        h_launches, h_rows, h_err, h_summary = phase_hstu(torch)
+        log(f"phase hstu {time.perf_counter() - t0:.1f} s")
+        log("hstu_json: " + json.dumps(h_summary))
+        print(json.dumps({"kernels": [
+            _kernel_entry(r["kernel"], h_launches[r["kernel"]], h_err, r)
+            for r in h_rows]}), flush=True)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}), flush=True)
@@ -6728,6 +7064,14 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
+    h_launches, h_rows, max_err["hstu_attn_fwd"], h_summary = phase_hstu(
+        torch)
+    max_err["hstu_attn_bwd"] = max_err["hstu_attn_fwd"]
+    launches.update(h_launches)
+    log(f"phase hstu {time.perf_counter() - t0:.1f} s")
+    log("hstu_json: " + json.dumps(h_summary))
+
+    t0 = time.perf_counter()
     tools_launches, tools_summary = phase_tools(
         torch, card, next((s for s in train_steps
                            if s["what"] == "A joint auto"), None))
@@ -6746,6 +7090,8 @@ def main() -> int:
     main_rows = {"topk_scores_streaming": rows[0]}
     for r in slice4_rows:                 # the first row of each: B=64
         main_rows.setdefault(r["kernel"], r)
+    for r in h_rows:                      # the HSTU cell's batch
+        main_rows[r["kernel"]] = r
     for r in train_rows:
         if (r["kernel"], r["shape"]) in (
                 ("tree_sample_negatives", "stratified"),
@@ -6755,15 +7101,10 @@ def main() -> int:
                 ("fused_tower_bwd", "[16384, 96]")):
             main_rows[r["kernel"]] = r
     entries = []
-    for name, (source, replaces) in KERNELS.items():
-        r = main_rows[name]
+    for name in KERNELS:
         check(launches[name] > 0, f"{name}: never launched on its path")
-        entries.append({
-            "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
-            "max_abs_err": max_err[name], "ms": r["ms"],
-            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+        entries.append(_kernel_entry(name, launches[name], max_err[name],
+                                     main_rows[name]))
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,7 +2,7 @@
 
 from types import SimpleNamespace
 
-from ncf_tpu_torch.models import advanced_ncf, ncf
+from ncf_tpu_torch.models import advanced_ncf, hstu, ncf
 from ncf_tpu_torch.utils.config import ModelConfig
 
 _NCF = SimpleNamespace(
@@ -20,6 +20,17 @@ _REGISTRY = {
         score_items_with_hour=advanced_ncf.score_items_with_hour,
         get_user_embeddings=advanced_ncf.get_user_embeddings,
         get_product_embeddings=advanced_ncf.get_product_embeddings,
+        table_keys=("user_emb", "item_emb"),
+    ),
+    # a sequence model: its own loss, jagged batches (``data/jagged.py``,
+    # moved to the card by its ``batch_to``), one item table and no
+    # ``score_candidates``, so no evaluator
+    "hstu": SimpleNamespace(
+        jagged=True,
+        init=hstu.init,
+        make_loss_fn=hstu.make_loss_fn,
+        batch_to=hstu.batch_to,
+        table_keys=hstu.TABLE_KEYS,
     ),
 }
 
@@ -30,4 +41,4 @@ def get_model(name: str):
     return _REGISTRY[name]
 
 
-__all__ = ["get_model", "ModelConfig", "advanced_ncf", "ncf"]
+__all__ = ["get_model", "ModelConfig", "advanced_ncf", "hstu", "ncf"]

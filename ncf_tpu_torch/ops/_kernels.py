@@ -33,7 +33,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 SOURCES = ("topk_streaming", "tree_sampler", "scatter_add", "temporal_sum",
            "fused_tower", "topk_streaming_int8", "topk_exact", "topk_segmax",
-           "gather")
+           "gather", "hstu_attention")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

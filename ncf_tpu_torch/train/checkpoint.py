@@ -99,14 +99,14 @@ def named_opt_state(state: Dict[str, Any], clip_norm: float,
     one after it.  A ``multi_transform`` state holds Adam's under
     ``inner_states.dense.inner_state`` and the table rule's under
     ``inner_states.embedding.inner_state`` (nested as ``_nest`` says).
-    The sparse path's state (``train/step.py::init_sparse_opt_state``)
-    keeps its keys, its dense optimizer's state named the same way
+    The sparse path's state (``train/step.py::init_sparse_opt_state``:
+    an ``*_acc`` accumulator a table) keeps its keys, its dense optimizer's state named the same way
     (that optimizer never clips)."""
-    if "user_acc" in state:
+    if "item_acc" in state:
         return {"dense": named_opt_state(
                     state["dense"], 0.0, weight_decay,
                     embedding_weight_decay, embedding_learning_rate),
-                "user_acc": state["user_acc"], "item_acc": state["item_acc"],
+                **{k: v for k, v in state.items() if k.endswith("_acc")},
                 "count": state["count"]}
     a = int((clip_norm or 0) > 0) + int((weight_decay or 0) > 0)
     count = state["count"]
@@ -126,9 +126,9 @@ def named_opt_state(state: Dict[str, Any], clip_norm: float,
 def opt_state_from_named(named: Dict[str, Any]) -> Dict[str, Any]:
     """Inverse of ``named_opt_state``.  The port keeps one count (optax
     advances all of a chain's counts together): Adam's."""
-    if "user_acc" in named:
+    if "item_acc" in named:
         return {"dense": opt_state_from_named(named["dense"]),
-                "user_acc": named["user_acc"], "item_acc": named["item_acc"],
+                **{k: v for k, v in named.items() if k.endswith("_acc")},
                 "count": named["count"]}
     node = named[min(named, key=int)]
     if "inner_states" not in node:

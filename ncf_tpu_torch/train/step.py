@@ -79,6 +79,7 @@ from ncf_tpu_torch.convert import tree_leaves, tree_map
 from ncf_tpu_torch.data.sampler import (sample_negatives,
                                         sample_negatives_stratified)
 from ncf_tpu_torch.evals.metrics import accuracy_stats
+from ncf_tpu_torch.models import get_model
 from ncf_tpu_torch.parallel.mesh import (DCN_AXIS, ICI_AXIS, SHARDED,
                                          WORLD, local_mesh, local_rows)
 from ncf_tpu_torch.parallel.embedding_sharding import exchange_gather
@@ -143,6 +144,8 @@ def _make_loss_fn(model, cfg: Config, training: bool = True):
     candidates, temporal fields and history on its own; the sparse step
     takes them first and hands them back as ``drawn`` with its injected
     rows."""
+    if hasattr(model, "make_loss_fn"):
+        return model.make_loss_fn(model, cfg, training)
     mcfg = cfg.model
     S = 1 + mcfg.negative_samples
     loss_impl = make_loss(cfg.train.loss)
@@ -185,7 +188,28 @@ def _make_loss_fn(model, cfg: Config, training: bool = True):
         targets = _targets(items.shape[0], S, items.device)
         return loss_impl(logits, targets), logits, targets
 
+    def rows(tables, batch, drawn, gather):
+        """The sparse step's injected rows, and the (table, ids) each
+        stands in for, in the same order."""
+        items, _, history = drawn
+        uids = batch["user_ids"]
+        item_ids = items.reshape(-1)
+        out = {"user_rows": gather(tables["user_emb"], uids),
+               "item_rows": gather(tables["item_emb"], item_ids).reshape(
+                   items.shape + (-1,))}
+        ids = [("user_emb", uids), ("item_emb", item_ids)]
+        if history is not None:
+            # padded slots alias the example's positive row (touched
+            # anyway) and get exactly-zero gradients
+            h_ids = torch.where(history >= 0, history,
+                                items[:, :1].to(history.dtype)).reshape(-1)
+            out["history_rows"] = gather(tables["item_emb"], h_ids).reshape(
+                history.shape + (-1,))
+            ids.append(("item_emb", h_ids.to(item_ids.dtype)))
+        return out, ids
+
     loss_fn.inputs = inputs
+    loss_fn.rows = rows
     return loss_fn
 
 
@@ -398,13 +422,27 @@ def make_multi_train_step(
 TABLE_KEYS = ("user_emb", "item_emb")
 
 
+def table_keys(model) -> tuple:
+    """The params the sparse step updates by rows: the model's
+    ``table_keys`` (AdvancedNCF's two tables; HSTU's item table)."""
+    return tuple(getattr(model, "table_keys", TABLE_KEYS))
+
+
+def _acc_key(table: str) -> str:
+    return table.replace("_emb", "_acc")
+
+
 def sparse_mode_available(cfg: Config, mesh=None) -> bool:
     """Whether the sparse table update applies: rowwise-Adagrad tables,
-    AdvancedNCF in the big-vocabulary (precompute-off) regime, and no
-    strictly-causal per-example histories.  Under a mesh, the reference's
-    static-shape rule too: sharded tables, both tables' rows dividing
-    ici and the batch dividing the ranks."""
+    and either a jagged model (HSTU) on one process (its tables are
+    updated by rows at any size) or AdvancedNCF in the big-vocabulary (precompute-off)
+    regime without strictly-causal per-example histories.  Under a mesh,
+    AdvancedNCF only, with the reference's static-shape rule too: sharded
+    tables, both tables' rows dividing ici and the batch dividing the
+    ranks."""
     m, t = cfg.model, cfg.train
+    if getattr(get_model(m.name), "jagged", False):
+        return t.embedding_optimizer == "rowwise_adagrad" and mesh is None
     base = (t.embedding_optimizer == "rowwise_adagrad"
             and m.name == "advanced_ncf"
             and not (m.use_sequence and m.causal_history)
@@ -422,15 +460,15 @@ def sparse_mode_available(cfg: Config, mesh=None) -> bool:
 
 def init_sparse_opt_state(dense_optimizer, params) -> Dict[str, Any]:
     """The sparse path's state: the dense optimizer's over the dense
-    params, a zero f32 accumulator a table row, and the schedule's
-    count."""
-    dense = {k: v for k, v in params.items() if k not in TABLE_KEYS}
-    dev = params["user_emb"].device
+    params, a zero f32 accumulator a row of each table the params hold
+    (``user_acc``, ``item_acc``), and the schedule's count."""
+    keys = [k for k in TABLE_KEYS if k in params]
+    dense = {k: v for k, v in params.items() if k not in keys}
+    dev = params[keys[0]].device
     return {"dense": dense_optimizer.init(dense),
-            "user_acc": torch.zeros(params["user_emb"].shape[0],
-                                    dtype=torch.float32, device=dev),
-            "item_acc": torch.zeros(params["item_emb"].shape[0],
-                                    dtype=torch.float32, device=dev),
+            **{_acc_key(k): torch.zeros(params[k].shape[0],
+                                        dtype=torch.float32, device=dev)
+               for k in keys},
             "count": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
@@ -441,9 +479,12 @@ def _make_sparse_body(model, cfg: Config, dense_optimizer, schedule,
     dropout), so the two paths take the same draws.  The tables are this
     rank's shards: with ici > 1 the rows come through the exchange, and
     the row gradients go to their owners (``train/sparse_sharded.py``;
-    on one rank that is the local combine)."""
+    on one rank that is the local combine).  A jagged model (HSTU) runs
+    on one process: its batch is not sliced."""
     tcfg = cfg.train
     loss_fn = _make_loss_fn(model, cfg)
+    keys = table_keys(model)
+    jagged = getattr(model, "jagged", False)
     clip = tcfg.gradient_clip_norm or 0.0
     emb_scale = ((tcfg.embedding_learning_rate / tcfg.learning_rate)
                  if tcfg.embedding_learning_rate else 1.0)
@@ -458,39 +499,26 @@ def _make_sparse_body(model, cfg: Config, dense_optimizer, schedule,
         return table[ids.long()]
 
     def body(params, opt_state, gen, batch, consts, negatives=None):
-        tables = {k: params[k] for k in TABLE_KEYS}
-        dense = {k: v for k, v in params.items() if k not in TABLE_KEYS}
+        tables = {k: params[k] for k in keys}
+        dense = {k: v for k, v in params.items() if k not in keys}
         with annotate("step.inputs"):
-            batch, drawn = plan.slice_batch(
-                batch, loss_fn.inputs(batch, gen, consts, negatives))
-            items, _, history = drawn
-            uids = batch["user_ids"]
-            item_ids = items.reshape(-1)
-            rows = {"user_rows": gather(tables["user_emb"], uids),
-                    "item_rows": gather(tables["item_emb"],
-                                        item_ids).reshape(
-                                            items.shape + (-1,))}
-            h_ids = None
-            if history is not None:
-                # padded slots alias the example's positive row (touched
-                # anyway) and get exactly-zero gradients
-                h_ids = torch.where(history >= 0, history,
-                                    items[:, :1].to(history.dtype)
-                                    ).reshape(-1)
-                rows["history_rows"] = gather(
-                    tables["item_emb"], h_ids).reshape(
-                        history.shape + (-1,))
+            drawn = loss_fn.inputs(batch, gen, consts, negatives)
+            if not jagged:
+                batch, drawn = plan.slice_batch(batch, drawn)
+            rows, row_ids = loss_fn.rows(tables, batch, drawn, gather)
         loss, logits, targets, grads = _grads(
             lambda d, *a, **r: loss_fn({**d, **tables}, *a, **r), dense,
             batch, gen, consts, None, drawn, rows=rows, scale=plan.scale,
             mesh=mesh)
         nd = len(grads) - len(rows)
-        g_dense, g_u = grads[:nd], grads[nd]
-        g_i = grads[nd + 1].reshape(-1, grads[nd + 1].shape[-1])
-        item_upd_ids = item_ids
-        if h_ids is not None:
-            g_i = torch.cat([g_i, grads[nd + 2].reshape(-1, g_i.shape[-1])])
-            item_upd_ids = torch.cat([item_ids, h_ids.to(item_ids.dtype)])
+        g_dense = grads[:nd]
+        # each table's ids and row gradients, in the order of its rows
+        ids_by = {k: [] for k in keys}
+        g_by = {k: [] for k in keys}
+        for (k, ids), g in zip(row_ids, grads[nd:]):
+            ids_by[k].append(ids)
+            g_by[k].append(g.reshape(-1, g.shape[-1]))
+        one = lambda xs: xs[0] if len(xs) == 1 else torch.cat(xs)
         with torch.no_grad():
             g_dense = plan.reduce_grads(list(g_dense))
             with annotate("step.sparse_update"):
@@ -503,9 +531,10 @@ def _make_sparse_body(model, cfg: Config, dense_optimizer, schedule,
                                          for g in g_dense]).sum()
                             if clip > 0 and g_dense else None)
                 _, _, gscale = sharded_sparse_rowwise_adagrad_update(
-                    mesh, [tables["user_emb"], tables["item_emb"]],
-                    [opt_state["user_acc"], opt_state["item_acc"]],
-                    [uids, item_upd_ids], [g_u, g_i], lr_t, eps, ewd,
+                    mesh, [tables[k] for k in keys],
+                    [opt_state[_acc_key(k)] for k in keys],
+                    [one(ids_by[k]) for k in keys],
+                    [one(g_by[k]) for k in keys], lr_t, eps, ewd,
                     clip=clip, dense_sq=dense_sq)
             with annotate("step.metrics"):
                 metrics = plan.metrics(loss, logits, targets)
@@ -515,8 +544,8 @@ def _make_sparse_body(model, cfg: Config, dense_optimizer, schedule,
                         g.mul_(gscale.to(g.dtype))
                 dense_state = dense_optimizer.update(dense, g_dense,
                                                      opt_state["dense"])
-        opt_state = {"dense": dense_state, "user_acc": opt_state["user_acc"],
-                     "item_acc": opt_state["item_acc"],
+        opt_state = {"dense": dense_state,
+                     **{_acc_key(k): opt_state[_acc_key(k)] for k in keys},
                      "count": (opt_state["count"] + 1).to(torch.int32)}
         return params, opt_state, gen, metrics
 
@@ -543,11 +572,12 @@ def make_sparse_train_step(
     dev = resolve_device(device)
     body = _make_sparse_body(model, cfg, dense_optimizer, schedule, mesh)
     consts = _consts(dev, neg_cdf, item_dept, item_cat, user_history)
+    to_device = getattr(model, "batch_to", _batch_to)
 
     def train_step(params, opt_state, gen, batch, negatives=None):
         with annotate("step"):
             with annotate("step.inputs"):
-                batch = _batch_to(batch, dev)
+                batch = to_device(batch, dev)
             return body(params, opt_state, gen, batch, consts, negatives)
 
     return train_step

@@ -39,6 +39,14 @@ each shard in its own file (``train/checkpoint.py``).  ``steps_per_dispatch:
 0`` means 1 on the dense path under a mesh (autotune's timings could
 differ between ranks, and every rank must take the same K).
 
+A model whose batches are jagged (``jagged`` in its registry entry:
+HSTU) trains on every user's history in time order, packed into
+batches of ``batch_size`` target positions (``data/jagged.py``), through
+the sparse table update, one step a dispatch, on one process; its step
+moves each batch to the card itself (``batch_to``).  A model without
+``score_candidates`` has no evaluator: evaluation is off, which the log
+says, and each epoch is checkpointed with its training metrics.
+
 The orbax checkpoint backends are not supported (orbax is a JAX
 library): they raise at construction.
 """
@@ -55,6 +63,7 @@ import numpy as np
 import torch
 
 from ncf_tpu_torch.data.interactions import Interactions
+from ncf_tpu_torch.data.jagged import JaggedBatches
 from ncf_tpu_torch.data.pipeline import (BatchIterator, DeviceEpochPipeline,
                                          group_batches, prefetch_to_device)
 from ncf_tpu_torch.data.sampler import make_sampling_cdf
@@ -88,6 +97,13 @@ _SCATTER = {"fast": ("fast", "bf16"),
 
 def _check_supported(cfg: Config, mesh) -> None:
     """Raise for what the port does not support, before any work."""
+    if getattr(get_model(cfg.model.name), "jagged", False) and (
+            cfg.train.sparse_table_update == "off"
+            or not sparse_mode_available(cfg, mesh)):
+        raise ValueError(
+            f"{cfg.model.name} trains through the sparse table update on "
+            "one process: embedding_optimizer rowwise_adagrad, "
+            "sparse_table_update auto or on, no mesh")
     if (cfg.train.sparse_table_update == "on"
             and not sparse_mode_available(cfg, mesh)):
         raise ValueError(
@@ -126,8 +142,9 @@ class Trainer:
         self.device = dev = resolve_device(device)
         self.model = get_model(cfg.model.name)
         self.mesh = mesh
+        self.jagged = getattr(self.model, "jagged", False)
+        self.evaluates = hasattr(self.model, "score_candidates")
 
-        # ---- data: time split for the val loss, leave-one-out for ranking
         self.full = interactions
         cfg.model.num_users = interactions.num_users
         cfg.model.num_items = interactions.num_items
@@ -135,7 +152,111 @@ class Trainer:
             cfg.model.num_departments = interactions.num_departments
             cfg.model.num_categories = interactions.num_categories
         _check_supported(cfg, mesh)
+        if self.jagged:
+            self._init_jagged_data(interactions)
+        else:
+            self._init_data(interactions)
+        if not self.evaluates:
+            log.info("%s: evaluation is off (no HR@k evaluator or serving "
+                     "path covers it yet); epochs are logged by their "
+                     "training loss", cfg.model.name)
 
+        # ---- params / optimizer / steps
+        init_gen = torch.Generator(device=dev).manual_seed(cfg.train.seed)
+        self.params = self.model.init(init_gen, cfg.model, device=dev)
+        self.shardings = None
+        self._exchange_rows = {}
+        embedding_ops.clear_exchange()
+        if mesh is not None:
+            # every rank initialized the same whole params: keep its part
+            self.shardings = mesh_lib.param_shardings(
+                self.params, mesh, cfg.mesh.shard_embeddings)
+            self._exchange_rows = {
+                k: self.params[k].shape[0]
+                for k, spec in self.shardings.items()
+                if spec == mesh_lib.SHARDED}
+            meta_params = tree_map(lambda p: torch.empty_like(
+                p, device="meta"), self.params)
+            self.params = mesh_lib.shard_pytree(self.params, self.shardings,
+                                                mesh)
+            self._register_exchange()
+        mode = cfg.train.sparse_table_update
+        self.sparse_tables = mode == "on" or (
+            mode == "auto" and sparse_mode_available(cfg, mesh))
+        steps = len(self.train_iter)
+        if self.sparse_tables:
+            # the dense params' optimizer: the step clips the whole set
+            self.optimizer = make_optimizer(dataclasses.replace(
+                cfg.train, gradient_clip_norm=0.0), steps)
+            self._sparse_schedule = make_schedule(cfg.train, steps)
+            self.opt_state = init_sparse_opt_state(self.optimizer,
+                                                   self.params)
+        else:
+            self.optimizer = make_optimizer(cfg.train, steps)
+            self.opt_state = self.optimizer.init(self.params)
+        self._ckpt_specs = None
+        if mesh is not None:
+            # the checkpoint's spec tree, from the state's global shapes
+            meta_state = (init_sparse_opt_state(self.optimizer, meta_params)
+                          if self.sparse_tables
+                          else self.optimizer.init(meta_params))
+            self._ckpt_specs = {
+                "params": self.shardings,
+                "opt_state": mesh_lib.state_shardings(
+                    self._named(meta_state), mesh,
+                    cfg.mesh.shard_embeddings),
+                "rng": mesh_lib.REPLICATED}
+        # seeded alike on every rank: the replicated generator
+        self.rng = torch.Generator(device=dev).manual_seed(cfg.train.seed + 1)
+
+        embedding_ops.set_scatter_impl(*_SCATTER[cfg.train.embedding_scatter])
+
+        if self.sparse_tables:
+            if self.jagged and cfg.train.steps_per_dispatch != 1:
+                # batches of different lengths do not stack
+                log.info("jagged batches: steps_per_dispatch=1")
+                cfg.train.steps_per_dispatch = 1
+            elif cfg.train.steps_per_dispatch == 0:
+                # the autotune probe builds the dense steps: skip it
+                log.info("sparse_table_update: steps_per_dispatch=8")
+                cfg.train.steps_per_dispatch = 8
+            make_step = (make_sparse_multi_train_step
+                         if cfg.train.steps_per_dispatch > 1
+                         else make_sparse_train_step)
+            self.train_step = make_step(
+                self.model, cfg, self.optimizer, self._sparse_schedule,
+                self.neg_cdf, self.item_dept, self.item_cat, mesh=mesh,
+                user_history=self.user_history, device=dev)
+        else:
+            if cfg.train.steps_per_dispatch == 0 and mesh is not None:
+                log.info("mesh: steps_per_dispatch=1 (every rank must "
+                         "take the same K; autotune times each rank)")
+                cfg.train.steps_per_dispatch = 1
+            elif cfg.train.steps_per_dispatch == 0:
+                cfg.train.steps_per_dispatch = self._autotune_dispatch()
+            make_step = (make_multi_train_step
+                         if cfg.train.steps_per_dispatch > 1
+                         else make_train_step)
+            self.train_step = make_step(*self._step_args(), device=dev,
+                                        mesh=mesh, shardings=self.shardings)
+        self.eval_step = make_eval_step(
+            self.model, cfg, self.neg_cdf, self.item_dept, self.item_cat,
+            self.user_history, device=dev, mesh=mesh)
+
+        self.primary = mesh is None or mesh.rank == 0
+        self.metrics_logger = MetricsLogger(
+            (cfg.train.metrics_file or None) if self.primary else None)
+        self.global_step = 0
+        self._resume_dispatch = 0
+        self.start_epoch = 0
+        self.best_val = float("inf")
+        self.best_metrics: Dict[str, float] = {}
+
+    def _init_data(self, interactions: Interactions) -> None:
+        """Rows of (user, item): a time split for the val loss,
+        leave-one-out for ranking, the batch iterators and the step's
+        constants."""
+        cfg, dev, mesh = self.cfg, self.device, self.mesh
         train_inter, val_inter = interactions.time_split(
             cfg.data.validation_days)
         if len(val_inter) == 0 or len(train_inter) == 0:
@@ -200,92 +321,16 @@ class Trainer:
             self.user_history = train_inter.recent_history(H)
             self.eval_history = loo_train.recent_history(H)
 
-        # ---- params / optimizer / steps
-        init_gen = torch.Generator(device=dev).manual_seed(cfg.train.seed)
-        self.params = self.model.init(init_gen, cfg.model, device=dev)
-        self.shardings = None
-        self._exchange_rows = {}
-        embedding_ops.clear_exchange()
-        if mesh is not None:
-            # every rank initialized the same whole params: keep its part
-            self.shardings = mesh_lib.param_shardings(
-                self.params, mesh, cfg.mesh.shard_embeddings)
-            self._exchange_rows = {
-                k: self.params[k].shape[0]
-                for k, spec in self.shardings.items()
-                if spec == mesh_lib.SHARDED}
-            meta_params = tree_map(lambda p: torch.empty_like(
-                p, device="meta"), self.params)
-            self.params = mesh_lib.shard_pytree(self.params, self.shardings,
-                                                mesh)
-            self._register_exchange()
-        mode = cfg.train.sparse_table_update
-        self.sparse_tables = mode == "on" or (
-            mode == "auto" and sparse_mode_available(cfg, mesh))
-        steps = len(self.train_iter)
-        if self.sparse_tables:
-            # the dense params' optimizer: the step clips the whole set
-            self.optimizer = make_optimizer(dataclasses.replace(
-                cfg.train, gradient_clip_norm=0.0), steps)
-            self._sparse_schedule = make_schedule(cfg.train, steps)
-            self.opt_state = init_sparse_opt_state(self.optimizer,
-                                                   self.params)
-        else:
-            self.optimizer = make_optimizer(cfg.train, steps)
-            self.opt_state = self.optimizer.init(self.params)
-        self._ckpt_specs = None
-        if mesh is not None:
-            # the checkpoint's spec tree, from the state's global shapes
-            meta_state = (init_sparse_opt_state(self.optimizer, meta_params)
-                          if self.sparse_tables
-                          else self.optimizer.init(meta_params))
-            self._ckpt_specs = {
-                "params": self.shardings,
-                "opt_state": mesh_lib.state_shardings(
-                    self._named(meta_state), mesh,
-                    cfg.mesh.shard_embeddings),
-                "rng": mesh_lib.REPLICATED}
-        # seeded alike on every rank: the replicated generator
-        self.rng = torch.Generator(device=dev).manual_seed(cfg.train.seed + 1)
-
-        embedding_ops.set_scatter_impl(*_SCATTER[cfg.train.embedding_scatter])
-
-        if self.sparse_tables:
-            if cfg.train.steps_per_dispatch == 0:
-                # the autotune probe builds the dense steps: skip it
-                log.info("sparse_table_update: steps_per_dispatch=8")
-                cfg.train.steps_per_dispatch = 8
-            make_step = (make_sparse_multi_train_step
-                         if cfg.train.steps_per_dispatch > 1
-                         else make_sparse_train_step)
-            self.train_step = make_step(
-                self.model, cfg, self.optimizer, self._sparse_schedule,
-                self.neg_cdf, self.item_dept, self.item_cat, mesh=mesh,
-                user_history=self.user_history, device=dev)
-        else:
-            if cfg.train.steps_per_dispatch == 0 and mesh is not None:
-                log.info("mesh: steps_per_dispatch=1 (every rank must "
-                         "take the same K; autotune times each rank)")
-                cfg.train.steps_per_dispatch = 1
-            elif cfg.train.steps_per_dispatch == 0:
-                cfg.train.steps_per_dispatch = self._autotune_dispatch()
-            make_step = (make_multi_train_step
-                         if cfg.train.steps_per_dispatch > 1
-                         else make_train_step)
-            self.train_step = make_step(*self._step_args(), device=dev,
-                                        mesh=mesh, shardings=self.shardings)
-        self.eval_step = make_eval_step(
-            self.model, cfg, self.neg_cdf, self.item_dept, self.item_cat,
-            self.user_history, device=dev, mesh=mesh)
-
-        self.primary = mesh is None or mesh.rank == 0
-        self.metrics_logger = MetricsLogger(
-            (cfg.train.metrics_file or None) if self.primary else None)
-        self.global_step = 0
-        self._resume_dispatch = 0
-        self.start_epoch = 0
-        self.best_val = float("inf")
-        self.best_metrics: Dict[str, float] = {}
+    def _init_jagged_data(self, interactions: Interactions) -> None:
+        """Every user's history, packed into batches of ``batch_size``
+        target positions; no held-out split and no step constants."""
+        cfg = self.cfg
+        self.train_iter = JaggedBatches(
+            interactions, cfg.train.batch_size,
+            cfg.model.max_sequence_length, seed=cfg.train.seed)
+        self.device_pipeline = None
+        self.neg_cdf = self.item_dept = self.item_cat = None
+        self.user_history = self.eval_history = None
 
     def _step_args(self):
         return (self.model, self.cfg, self.optimizer, self.neg_cdf,
@@ -340,7 +385,8 @@ class Trainer:
                 it = group_batches(it, spd)
             if skip:  # before prefetch: skipped groups are never copied
                 it = itertools.islice(it, skip, None)
-            it = prefetch_to_device(it, device=self.device)
+            if not self.jagged:   # a jagged step moves its own batch
+                it = prefetch_to_device(it, device=self.device)
         dispatch = skip
         every = cfg.train.checkpoint_every_dispatches
         for batch in it:
@@ -465,7 +511,10 @@ class Trainer:
                 log.info("epoch %d done in %.1fs (%.0f examples/s)",
                          epoch, train_m["epoch_seconds"],
                          train_m["examples_per_s"])
-                if (epoch + 1) % cfg.train.eval_every_epochs == 0:
+                if not self.evaluates:
+                    self.save_checkpoint(epoch, train_m)
+                    self.best_metrics = {**train_m, "epoch": epoch}
+                elif (epoch + 1) % cfg.train.eval_every_epochs == 0:
                     val_m = self.validate(epoch)
                     log.info(
                         "epoch %d val_loss=%.4f hr@10=%.4f ndcg@10=%.4f",

@@ -77,6 +77,18 @@ class ModelConfig:
     #   "independent" — eval-consistent per-candidate scoring (the MLP
     #                   path learns to rank; no train/eval semantics gap)
     candidate_mode: str = "joint"
+    # HSTU (``name: hstu``, models/hstu.py; Zhai et al., ICML 2024): the
+    # item embedding width d, the blocks, the widths of a head's query
+    # and key (attention_dim) and of its value (linear_dim), the longest
+    # history N (the positions table and the relative bias), and the
+    # sampled softmax's temperature; num_heads, dropout and
+    # negative_samples are shared with the fields above
+    item_embedding_dim: int = 50
+    num_blocks: int = 8
+    attention_dim: int = 25
+    linear_dim: int = 25
+    max_sequence_length: int = 200
+    temperature: float = 0.05
 
 
 @dataclass

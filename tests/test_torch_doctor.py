@@ -26,13 +26,22 @@ from ncf_tpu_torch.utils import doctor  # noqa: E402
 from ncf_tpu_torch.utils.config import Config  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-CONFIGS = sorted(glob.glob(os.path.join(ROOT, "configs", "*.yaml")))
+# the shipped configurations of both packages (configs/), and the port's
+# own (ncf_tpu_torch/configs/: models the JAX package does not have)
+CONFIGS = (sorted(glob.glob(os.path.join(ROOT, "configs", "*.yaml")))
+           + sorted(glob.glob(os.path.join(ROOT, "ncf_tpu_torch", "configs",
+                                           "*.yaml"))))
 NAMES = ["config", "devices", "compile", "hbm", "mesh", "artifact_store",
          "native", "redis"]
 
 
 def test_eight_configs_shipped():
-    assert len(CONFIGS) == 8
+    # the eight AdvancedNCF/NCF configurations under configs/, and
+    # HSTU's among the port's own
+    port = os.path.join(ROOT, "ncf_tpu_torch", "configs")
+    assert len(CONFIGS) == 9
+    assert [os.path.basename(p) for p in CONFIGS
+            if p.startswith(port)] == ["hstu_large_retail4m.yaml"]
 
 
 @pytest.mark.parametrize("path", CONFIGS, ids=os.path.basename)

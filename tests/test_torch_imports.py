@@ -224,7 +224,8 @@ def test_the_kernel_loader_builds_nothing_on_import():
     assert set(_kernels.SOURCES) == {"topk_streaming", "tree_sampler",
                                      "scatter_add", "temporal_sum",
                                      "fused_tower", "topk_streaming_int8",
-                                     "topk_exact", "topk_segmax", "gather"}
+                                     "topk_exact", "topk_segmax", "gather",
+                                     "hstu_attention"}
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     for name in _kernels.SOURCES:
         assert os.path.exists(os.path.join(
